@@ -1,0 +1,96 @@
+"""Carry simulator state between the JAX package and the PyTorch port.
+
+A simulator has no weights; what a replay carries is its config's numeric
+knobs (``MechParams``) and its scan state (``SimState``).  These helpers take
+them as numpy arrays — the JAX package's leaves after ``np.asarray`` — so a
+replay started in one package can finish in the other.  Nothing here
+imports the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import dram
+from repro_torch.core import fts as fts_lib
+from repro_torch.core.timing import MechParams
+from repro_torch.device import resolve_device
+
+# unbatched rank and dtype of every SimState leaf, in the JAX package's
+# tree-leaves order (NamedTuple fields depth first)
+_BANK_LEAVES = (
+    ("open_row", 1, torch.int32), ("busy", 1, torch.int32),
+    ("tags", 1, torch.int32), ("valid", 1, torch.bool),
+    ("dirty", 1, torch.bool), ("benefit", 1, torch.int32),
+    ("last_use", 1, torch.int32), ("evict_row", 0, torch.int32),
+    ("evict_mask", 1, torch.bool), ("miss_tags", 1, torch.int32),
+    ("miss_cnt", 1, torch.int32), ("row_sum", 1, torch.int32),
+    ("free_list", 1, torch.int32), ("n_valid", 0, torch.int32),
+    ("mshr_ring", 2, torch.int32), ("mshr_idx", 1, torch.int32),
+    ("bus_free", 0, torch.int32),
+)
+# the FTS leaves carry a bank axis on top of their own rank
+_FTS_NAMES = set(fts_lib.FTS._fields)
+_CNT_RANK = {f: (1 if f in ("lat_sum_ns", "req_cnt") else 0)
+             for f in dram.Counters._fields}
+
+
+def mech_params_from_numpy(params: Mapping[str, object],
+                           device=None) -> MechParams:
+    """``{field: array}`` (0-d or ``(P,)``) -> ``MechParams`` of int32
+    tensors, e.g. from the JAX package's ``cfg.params()._asdict()``."""
+    dev = resolve_device(device)
+    return MechParams(**{
+        f: torch.tensor(np.asarray(params[f]), dtype=torch.int32,
+                        device=dev)
+        for f in MechParams._fields})
+
+
+def _to_lanes(x, rank: int, dtype, device) -> torch.Tensor:
+    a = np.asarray(x)
+    extra = a.ndim - rank
+    if extra < 0:
+        raise ValueError(f"leaf of shape {a.shape} has fewer than {rank} "
+                         "axes")
+    lanes = math.prod(a.shape[:extra])
+    a = np.array(a.reshape((lanes,) + a.shape[extra:]))  # own, writable
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def sim_state_from_numpy(bank_leaves: Sequence, cnt_leaves: Sequence,
+                         device=None) -> dram.SimState:
+    """The JAX package's ``SimState`` leaves as numpy arrays -> the port's
+    ``SimState``.
+
+    ``bank_leaves`` are ``jax.tree.leaves(state.bank)`` (17 arrays) and
+    ``cnt_leaves`` ``jax.tree.leaves(state.cnt)`` (12), in that order.  Any
+    leading axes beyond a leaf's own rank — none for one channel, ``(C,)``
+    or ``(P, C)`` for batched states — flatten into the port's lane axis
+    (lane ``p * C + c``)."""
+    dev = resolve_device(device)
+    if len(bank_leaves) != len(_BANK_LEAVES):
+        raise ValueError(f"expected {len(_BANK_LEAVES)} bank leaves, got "
+                         f"{len(bank_leaves)}")
+    if len(cnt_leaves) != len(dram.Counters._fields):
+        raise ValueError(f"expected {len(dram.Counters._fields)} counter "
+                         f"leaves, got {len(cnt_leaves)}")
+    bank: Dict[str, torch.Tensor] = {}
+    for (name, rank, dtype), x in zip(_BANK_LEAVES, bank_leaves):
+        rank += 1 if name in _FTS_NAMES else 0   # (n_banks, ...) per lane
+        bank[name] = _to_lanes(x, rank, dtype, dev)
+    cnt = {f: _to_lanes(x, _CNT_RANK[f], torch.int32, dev)
+           for f, x in zip(dram.Counters._fields, cnt_leaves)}
+    lanes = {x.shape[0] for x in list(bank.values()) + list(cnt.values())}
+    if len(lanes) != 1:
+        raise ValueError(f"leaves disagree on the lane count: {lanes}")
+    fts = fts_lib.FTS(**{f: bank.pop(f) for f in fts_lib.FTS._fields})
+    return dram.SimState(bank=dram.BankState(fts=fts, **bank),
+                         cnt=dram.Counters(**cnt))
+
+
+def counters_to_numpy(cnt: dram.Counters) -> Dict[str, np.ndarray]:
+    """``Counters`` -> ``{field: numpy array}`` (copies to the host)."""
+    return {f: x.detach().cpu().numpy() for f, x in zip(cnt._fields, cnt)}

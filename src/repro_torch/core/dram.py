@@ -1,0 +1,627 @@
+"""Vectorized, cycle-approximate DRAM bank/row-buffer/FIGCache simulator,
+PyTorch port of ``repro.core.dram`` (the fused scan body).
+
+The JAX package runs a ``lax.scan`` over a per-channel request trace and
+``vmap``s it over channels and config points.  The port writes those axes
+out: every run carries ``N = P x C`` *lanes* (lane ``p * C + c`` is config
+point ``p`` on channel ``c``) and an eager Python loop takes one step per
+request, each step a handful of tensor ops over all lanes.  The trace moves
+to the device once, laid out ``(T, N)`` so step ``t`` reads one contiguous
+row per field.
+
+Per-lane state (``BankState``): open row + busy-until time per bank, a
+banked FTS (``core/fts.py``), the MSHR ring per core and the channel's data
+bus.  All of it is int32 (bool for flags) and updated in place by the step:
+``resume`` clones its input state once, so callers' tensors never change.
+A step reads nothing back to the host — branches are ``torch.where`` — so
+on a CUDA device the loop only enqueues work.
+
+``StaticConfig.fts_kernel`` routes the tag compare + victim argmin through
+``kernels/fts_lookup`` (the hand-written CUDA kernel on a CUDA device, its
+plain PyTorch version on the CPU).
+
+Not ported yet (ROADMAP.md, Queue 1): the telemetry windows
+(``static.telemetry > 0``) and the ``dense`` reference body, both of which
+raise; the jitted segment/telemetry entry points of the streaming layer.
+
+Timestamps are int32 ticks (1/8 ns).  Latency accumulators are int32 ns.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import fts as fts_lib
+from repro_torch.core.timing import (DDR4, GEOM, DRAMGeometry, DRAMTimings,
+                                     MechConfig, MechParams, StaticConfig)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fts_lookup.ops import fts_lookup_op
+
+I32 = torch.int32
+
+
+class Trace(NamedTuple):
+    """Per-channel request stream in service order.
+
+    Leaves are numpy arrays or tensors shaped (T,) for one channel or
+    (C, T) for several; the entry points move them to the device."""
+    t_issue: object   # int32 ticks
+    bank: object      # int32 [0, n_banks)
+    row: object       # int32 [0, n_rows)
+    col: object       # int32 [0, row_blocks) — cache-block column
+    is_write: object  # bool
+    core: object      # int32 [0, n_cores)
+
+
+N_MSHR = 8  # outstanding misses per core (paper Table 1) — closed-loop throttle
+
+# Ragged-workload padding sentinel: a request with ``t_issue >= NOOP_ISSUE``
+# is a no-op — it touches no bank/bus/MSHR/FTS state and no counter.
+NOOP_ISSUE = int(fts_lib.BIG)
+
+# Saturation ceiling of the per-core latency-sum counter (cap + the
+# per-step bound of simulated time == INT32_MAX, so the add never wraps).
+LAT_SUM_CAP = (1 << 30) - 1
+
+_TRACE_DTYPES = (I32, I32, I32, I32, torch.bool, I32)
+
+
+def noop_pad(trace: Trace, length: int) -> Trace:
+    """Right-pad a (T,)/(C, T) trace to ``length`` requests with no-ops
+    (``t_issue = NOOP_ISSUE``, neutral fields elsewhere).  Works on numpy
+    and torch leaves alike."""
+    cur = trace.t_issue.shape[-1]
+    if cur > length:
+        raise ValueError(f"trace of {cur} requests is longer than {length}")
+    if cur == length:
+        return trace
+
+    def pad(x, fill):
+        shape = tuple(x.shape[:-1]) + (length - cur,)
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
+                                            device=x.device)], dim=-1)
+        x = np.asarray(x)
+        return np.concatenate([x, np.full(shape, fill, dtype=x.dtype)],
+                              axis=-1)
+
+    return Trace(t_issue=pad(trace.t_issue, NOOP_ISSUE),
+                 bank=pad(trace.bank, 0), row=pad(trace.row, 0),
+                 col=pad(trace.col, 0), is_write=pad(trace.is_write, False),
+                 core=pad(trace.core, 0))
+
+
+class BankState(NamedTuple):
+    open_row: torch.Tensor   # (N, n_banks) int32; -1 closed; cache rows >= n_rows
+    busy: torch.Tensor       # (N, n_banks) int32 ticks
+    fts: fts_lib.FTS         # leaves (N, n_banks, ...)
+    mshr_ring: torch.Tensor  # (N, n_cores, N_MSHR) int32 — completion times
+    mshr_idx: torch.Tensor   # (N, n_cores) int32 — ring cursor
+    bus_free: torch.Tensor   # (N,) int32 — channel data bus free time
+
+
+class Counters(NamedTuple):
+    acts_slow: torch.Tensor
+    acts_fast: torch.Tensor
+    reads: torch.Tensor
+    writes: torch.Tensor
+    reloc_blocks: torch.Tensor    # blocks moved into the cache
+    wb_blocks: torch.Tensor       # dirty writeback blocks
+    row_hits: torch.Tensor
+    cache_hits: torch.Tensor
+    insertions: torch.Tensor
+    lat_sum_ns: torch.Tensor      # (..., n_cores)
+    req_cnt: torch.Tensor         # (..., n_cores)
+    t_end: torch.Tensor           # ticks
+
+
+class SimState(NamedTuple):
+    """The full carried state of a replay, every leaf with a leading lane
+    axis ``(N, ...)``.  (The JAX package's third field, the telemetry
+    cursor, comes with the telemetry port.)"""
+    bank: BankState
+    cnt: Counters
+
+
+def _lanes_of(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    return x.expand((lanes,) + tuple(x.shape)).clone()
+
+
+def init_state(static: StaticConfig, geom: DRAMGeometry = GEOM,
+               lanes: int = 1, device=None) -> BankState:
+    """Initial per-bank state of ``lanes`` independent lanes.  FTS arrays
+    are allocated at the padded maximum; slots beyond a lane's ``n_slots``
+    stay invalid forever."""
+    dev = resolve_device(device)
+    max_slots = static.max_slots if static.has_cache else 1
+    max_segs = static.max_segs_per_row if static.has_cache else 1
+    one = fts_lib.init(max_slots, max_segs, device=dev)
+    fts = fts_lib.FTS(*[_lanes_of(a.expand((geom.n_banks,) + tuple(a.shape)),
+                                  lanes) for a in one])
+    return BankState(
+        open_row=torch.full((lanes, geom.n_banks), -1, dtype=I32, device=dev),
+        busy=torch.zeros((lanes, geom.n_banks), dtype=I32, device=dev),
+        fts=fts,
+        mshr_ring=torch.zeros((lanes, geom.n_cores, N_MSHR), dtype=I32,
+                              device=dev),
+        mshr_idx=torch.zeros((lanes, geom.n_cores), dtype=I32, device=dev),
+        bus_free=torch.zeros((lanes,), dtype=I32, device=dev),
+    )
+
+
+def init_counters(geom: DRAMGeometry = GEOM, lanes: int = 1,
+                  device=None) -> Counters:
+    dev = resolve_device(device)
+
+    def z(*shape):
+        return torch.zeros((lanes,) + shape, dtype=I32, device=dev)
+
+    return Counters(z(), z(), z(), z(), z(), z(), z(), z(), z(),
+                    z(geom.n_cores), z(geom.n_cores), z())
+
+
+def _floordiv(a, b):
+    """Floor division, as ``//`` on jnp int arrays (``-1 // 512 == -1``)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _lisa_hops(row: torch.Tensor, geom: DRAMGeometry) -> torch.Tensor:
+    """Distance (in subarrays) to the nearest interleaved fast subarray.
+
+    LISA-VILLA interleaves 16 fast subarrays among 64 slow ones (1 per 4).
+    Floor semantics matter: an invalid victim's tag is -1, and its hop
+    count must be that of subarray -1, as in the JAX package."""
+    sub = _floordiv(row, geom.rows_per_subarray)
+    m = torch.remainder(sub, 4)
+    return torch.minimum(m, 4 - m)
+
+
+class Decision(NamedTuple):
+    """The bank-local half of one fused step, every leaf ``(N,)``: the FTS
+    write-back, the row-buffer outcome and the relocation cost.  No-op-safe:
+    for a padding request every write value equals the old state and every
+    counter delta is zero."""
+    write: Optional[fts_lib.SlotWrite]  # None for cache-less mechanisms
+    hit: torch.Tensor          # cache hit (cacheable & real)
+    row_hit: torch.Tensor      # open-row hit on the (possibly cached) target
+    served_fast: torch.Tensor  # served from fast-subarray timings
+    pre_act: torch.Tensor      # ACT(+PRE) latency before the CAS
+    reloc_cost: torch.Tensor   # insertion relocation ticks (0 if no insert)
+    new_open: torch.Tensor     # row left open in the bank afterwards
+    moved: torch.Tensor        # blocks relocated into the cache
+    wb: torch.Tensor           # dirty-victim writeback blocks
+    n_ins: torch.Tensor        # 1 if an insertion happened
+
+
+class _Consts:
+    """Per-(device, lanes) index tensors a step reuses instead of
+    re-allocating them every request."""
+
+    def __init__(self, n: int, device, max_slots: int, max_segs: int):
+        self.lanes = torch.arange(n, device=device)
+        self.lanes2 = self.lanes[:, None]
+        self.slots = torch.arange(max_slots, dtype=I32, device=device)
+        self.segs = torch.arange(max_segs, dtype=I32, device=device)
+        self.zeros = torch.zeros((n,), dtype=I32, device=device)
+        self.false = torch.zeros((n,), dtype=torch.bool, device=device)
+
+
+def make_decision_fn(static: StaticConfig, geom: DRAMGeometry = GEOM):
+    """Build the per-request decision function of the fused hot loop.
+
+    ``decide(params, state, req, step_id, consts) -> Decision`` reads only
+    each lane's own bank.  ``step_id (N,)`` is the number of real requests
+    retired before this one, which feeds LRU stamps and the Random victim
+    hash; ``consts`` is the step's ``_Consts``."""
+    cache_base = geom.n_rows                      # id-space for cache rows
+    reserved_sub = geom.n_subarrays - 1           # figcache_slow region
+    lisa = static.mechanism == "lisa_villa"
+    slow_cache = static.mechanism == "figcache_slow"
+    lldram = static.mechanism == "lldram"
+    max_slots = static.max_slots if static.has_cache else 1
+    row_benefit = static.policy == "row_benefit"
+
+    def decide(params: MechParams, state: BankState, req: Trace, step_id,
+               k: _Consts) -> Decision:
+        p = params
+        spr = p.segs_per_row
+        lanes = k.lanes
+        b = req.bank.long()
+        f = state.fts
+        real = req.t_issue < NOOP_ISSUE
+        open_b = state.open_row[lanes, b]
+
+        if static.has_cache:
+            # ---- cache lookup + victim candidate (one pass over the bank)
+            seg = req.row * spr + _floordiv(req.col, p.seg_blocks)
+            if slow_cache:   # never cache the subarray hosting reserved rows
+                cacheable = _floordiv(req.row, geom.rows_per_subarray) \
+                    != reserved_sub
+            else:
+                cacheable = True
+            if static.fts_kernel:
+                # fused pass: tag compare + the policy's masked victim
+                # argmin in one visit of the bank row.  Relies on the
+                # in-scan invariant "invalid => tag == -1"
+                if row_benefit:
+                    score, limit = f.row_sum, _floordiv(p.n_slots + spr - 1,
+                                                        spr)
+                elif static.policy == "segment_benefit":
+                    score, limit = f.benefit, p.n_slots
+                elif static.policy == "lru":
+                    score, limit = f.last_use, p.n_slots
+                else:                       # random: no argmin needed
+                    score, limit = f.tags, k.zeros
+                hit_raw, slot, cand = fts_lookup_op(f.tags, score, req.bank,
+                                                    seg, limit)
+            else:
+                # tag-only compare: invalid slots always hold tags == -1
+                # and segment ids are >= 0, so the valid bitmap is redundant
+                m = f.tags[lanes, b] == seg[:, None]
+                hit_raw = m.any(dim=-1)
+                slot = torch.argmax(m.to(I32), dim=-1).to(I32)
+                if row_benefit:
+                    cand = fts_lib.masked_argmin(
+                        f.row_sum[lanes, b],
+                        k.slots * spr[:, None] < p.n_slots[:, None])
+                elif static.policy in ("segment_benefit", "lru"):
+                    arr = f.benefit if static.policy == "segment_benefit" \
+                        else f.last_use
+                    cand = fts_lib.masked_argmin(
+                        arr[lanes, b], k.slots < p.n_slots[:, None])
+                else:
+                    cand = k.zeros
+            hit = hit_raw & cacheable & real
+
+            # ---- replacement decision from carried aggregates ------------
+            evict_row_b = f.evict_row[lanes, b]
+            evict_mask_b = f.evict_mask[lanes, b]
+            if row_benefit:
+                row_sel, mask_sel = fts_lib.pick_victim_row(
+                    None, evict_row_b, evict_mask_b, spr, p.n_slots,
+                    new_row=cand)
+                bidx = ((row_sel * spr)[:, None] + k.segs).clamp(
+                    0, max_slots - 1)
+                victim_slot, mask_new = fts_lib.pick_victim_in_row(
+                    f.benefit[k.lanes2, b[:, None], bidx.long()], mask_sel,
+                    row_sel, spr)
+            elif static.policy == "random":
+                victim_slot = fts_lib.random_victim(step_id, p.n_slots)
+            else:
+                victim_slot = cand
+            n_valid_b = f.n_valid[lanes, b]
+            has_free = n_valid_b < p.n_slots
+            free_slot = f.free_list[lanes, b,
+                                    n_valid_b.clamp(max=max_slots - 1).long()]
+
+            # ---- insertion policy (consecutive-miss tracker) -------------
+            tr_idx = torch.remainder(seg, f.miss_tags.shape[-1])
+            tl = tr_idx.long()
+            miss_tag_old = f.miss_tags[lanes, b, tl]
+            miss_cnt_old = f.miss_cnt[lanes, b, tl]
+            cnt_new = torch.where(miss_tag_old == seg, miss_cnt_old + 1, 1)
+            want = (p.insert_threshold <= 1) | (cnt_new >= p.insert_threshold)
+            # the tracker advances on actual (cacheable) misses only
+            advance = real & cacheable & ~hit_raw
+            do_ins = ~hit & cacheable & want & real
+
+            # ---- per-(bank, slot) state update ---------------------------
+            # exactly one slot w is written per lane (hit slot or landing
+            # slot); when nothing happens the write stores back old values
+            ins_slot = torch.where(has_free, free_slot, victim_slot)
+            w = torch.where(hit, slot, ins_slot)
+            wl = w.long()
+            old_tag = f.tags[lanes, b, wl]
+            old_valid = f.valid[lanes, b, wl]
+            old_dirty = f.dirty[lanes, b, wl]
+            old_benefit = f.benefit[lanes, b, wl]
+            old_last = f.last_use[lanes, b, wl]
+            ev_dirty = do_ins & ~has_free & old_valid & old_dirty
+            b_touch = torch.minimum(old_benefit + 1, p.benefit_max)
+            new_benefit = torch.where(do_ins, 1,
+                                      torch.where(hit, b_touch, old_benefit))
+            if row_benefit:
+                use_victim = do_ins & ~has_free
+                new_evict_row = torch.where(use_victim, row_sel, evict_row_b)
+                new_evict_mask = torch.where(use_victim[:, None], mask_new,
+                                             evict_mask_b)
+            else:
+                new_evict_row, new_evict_mask = evict_row_b, evict_mask_b
+            write = fts_lib.SlotWrite(
+                w=w,
+                tag=torch.where(do_ins, seg, old_tag),
+                valid=old_valid | do_ins,
+                dirty=torch.where(do_ins, req.is_write,
+                                  old_dirty | (hit & req.is_write)),
+                benefit=new_benefit,
+                last_use=torch.where(hit | do_ins, step_id, old_last),
+                row_delta=new_benefit - old_benefit,
+                evict_row=new_evict_row,
+                evict_mask=new_evict_mask,
+                tr_idx=tr_idx,
+                miss_tag=torch.where(advance, seg, miss_tag_old),
+                miss_cnt=torch.where(advance, cnt_new, miss_cnt_old),
+                n_valid_inc=(do_ins & has_free).to(I32),
+            )
+            # kernel path: slot == max_slots on a miss; read only under hit
+            target_row = torch.where(hit, cache_base + _floordiv(slot, spr),
+                                     req.row)
+            served_fast = hit & static.fast_cache
+        else:
+            write = None
+            hit = k.false
+            target_row = req.row
+            served_fast = ~k.false if lldram else k.false
+
+        # ---- service latency (bank-local half) ----------------------------
+        rcd = torch.where(served_fast, p.rcd_fast, p.rcd)
+        rp = torch.where(served_fast, p.rp_fast, p.rp)
+        row_hit = open_b == target_row
+        closed = open_b < 0
+        pre_act = torch.where(row_hit, 0, rcd + torch.where(closed, 0, rp))
+
+        # ---- relocation cost (miss-path insertion) ------------------------
+        if static.has_cache:
+            if static.free_reloc:
+                reloc_cost = k.zeros
+            elif lisa:
+                # whole-row relocation, distance-dependent (src row is open)
+                reloc_cost = _lisa_hops(req.row, geom) * p.lisa_hop \
+                    + p.rcd_fast
+                wb_hops = _lisa_hops(old_tag, geom)
+                reloc_cost = reloc_cost + torch.where(
+                    ev_dirty, wb_hops * p.lisa_hop + p.rcd, 0)
+            else:
+                # FIGARO: seg_blocks RELOCs through the GRB; the source row
+                # is open serving the miss and the destination ACT overlaps
+                reloc_cost = p.seg_blocks * p.reloc
+                # dirty-victim writeback needs the victim's home row opened
+                reloc_cost = reloc_cost + torch.where(
+                    ev_dirty, p.seg_blocks * p.reloc + p.rcd, 0)
+            reloc_cost = torch.where(do_ins, reloc_cost, 0)
+            # after insertion the destination cache row is left open
+            new_open = torch.where(
+                do_ins, cache_base + _floordiv(ins_slot, spr), target_row)
+            moved = torch.where(do_ins, p.seg_blocks, 0)
+            wb = torch.where(do_ins & ev_dirty, p.seg_blocks, 0)
+            n_ins = do_ins.to(I32)
+        else:
+            reloc_cost = moved = wb = n_ins = k.zeros
+            new_open = target_row
+
+        return Decision(write=write, hit=hit, row_hit=row_hit,
+                        served_fast=served_fast, pre_act=pre_act,
+                        reloc_cost=reloc_cost, new_open=new_open,
+                        moved=moved, wb=wb, n_ins=n_ins)
+
+    return decide
+
+
+def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
+              variant: str = "fused"):
+    """Build the step function for one static structure.
+
+    ``step(params, carry, req) -> carry`` with ``params`` leaves ``(N,)``,
+    ``carry = (BankState, Counters)`` and ``req`` a ``Trace`` of ``(N,)``
+    rows.  The bank state is updated in place; the counters are rebuilt
+    (their per-core planes updated in place).
+
+    Only the ``fused`` body is ported; ``dense`` and telemetry windows
+    raise ``ValueError`` (ROADMAP.md, Queue 1)."""
+    if variant != "fused":
+        raise ValueError(f"scan variant {variant!r} is not ported to "
+                         "repro_torch; only 'fused' is (see ROADMAP.md)")
+    if static.telemetry:
+        raise ValueError("telemetry windows are not ported to repro_torch "
+                         "yet (see ROADMAP.md, Queue 1); set telemetry=0")
+    decide = make_decision_fn(static, geom)
+    max_slots = static.max_slots if static.has_cache else 1
+    max_segs = static.max_segs_per_row if static.has_cache else 1
+    consts: Dict[tuple, _Consts] = {}
+
+    def step(params: MechParams, carry, req: Trace):
+        state, cnt = carry
+        p = params
+        n = req.bank.shape[0]
+        key = (req.bank.device, n)
+        k = consts.get(key)
+        if k is None:
+            k = consts[key] = _Consts(n, req.bank.device, max_slots,
+                                      max_segs)
+        lanes = k.lanes
+        b = req.bank.long()
+        core = req.core.long()
+        real = req.t_issue < NOOP_ISSUE
+        step_id = cnt.reads + cnt.writes
+        dec = decide(params, state, req, step_id, k)
+
+        # ---- channel-shared timing: MSHR closed loop + data bus -----------
+        # a core may not have more than N_MSHR requests in flight — it
+        # stalls until the request N_MSHR-ago completed
+        mshr_slot = state.mshr_idx[lanes, core]
+        ms = mshr_slot.long()
+        mshr_free = state.mshr_ring[lanes, core, ms]
+        t_ready = torch.maximum(req.t_issue, mshr_free)
+        busy_b = state.busy[lanes, b]
+        open_b = state.open_row[lanes, b]
+        t0 = torch.maximum(t_ready, busy_b)
+        # the 64 B burst serializes on the shared channel data bus
+        done = torch.maximum(t0 + dec.pre_act + p.cas, state.bus_free) + p.bl
+        # bank occupancy: column accesses pipeline at tCCD; an ACT(+PRE)
+        # occupies the bank for its own duration before the CAS can pipeline
+        serv_end = t0 + dec.pre_act + p.ccd
+
+        if dec.write is not None:
+            fts_lib.apply_write(state.fts, req.bank, p.segs_per_row,
+                                dec.write, lanes)
+        state.open_row[lanes, b] = torch.where(real, dec.new_open, open_b)
+        state.busy[lanes, b] = torch.where(real, serv_end + dec.reloc_cost,
+                                           busy_b)
+        state.mshr_ring[lanes, core, ms] = torch.where(real, done, mshr_free)
+        state.mshr_idx[lanes, core] = torch.where(
+            real, torch.remainder(mshr_slot + 1, N_MSHR), mshr_slot)
+        state = state._replace(
+            bus_free=torch.where(real, done, state.bus_free))
+
+        # ---- counters ------------------------------------------------------
+        act = ((~dec.row_hit) & real).to(I32)
+        lat_ns = _floordiv(done - t_ready, 8)
+        cnt.lat_sum_ns[lanes, core] += torch.where(real, lat_ns, 0)
+        cnt.lat_sum_ns.clamp_(max=LAT_SUM_CAP)
+        cnt.req_cnt[lanes, core] += real.to(I32)
+        cnt = cnt._replace(
+            acts_slow=cnt.acts_slow + act * ~dec.served_fast,
+            acts_fast=cnt.acts_fast + act * dec.served_fast,
+            reads=cnt.reads + (~req.is_write & real).to(I32),
+            writes=cnt.writes + (req.is_write & real).to(I32),
+            reloc_blocks=cnt.reloc_blocks + dec.moved,
+            wb_blocks=cnt.wb_blocks + dec.wb,
+            row_hits=cnt.row_hits + (dec.row_hit & real).to(I32),
+            cache_hits=cnt.cache_hits + dec.hit.to(I32),
+            insertions=cnt.insertions + dec.n_ins,
+            # the request is not retired until its burst clears the shared
+            # data bus, which can outlast the bank's own serv_end+reloc
+            t_end=torch.maximum(cnt.t_end, torch.where(
+                real, torch.maximum(done, serv_end + dec.reloc_cost), 0)),
+        )
+        return state, cnt
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# layout helpers: JAX-shaped inputs/outputs <-> the port's lane axis
+
+def _lane_trace(trace: Trace, repeats: int, device) -> Trace:
+    """(T,)/(C, T) leaves -> contiguous (T, repeats * C) device tensors;
+    column ``p * C + c`` is channel ``c``."""
+    out = []
+    for x, dt in zip(trace, _TRACE_DTYPES):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        x = x.to(device=device, dtype=dt)
+        x = x[None] if x.dim() == 1 else x
+        out.append(x.t().repeat(1, repeats).contiguous())
+    return Trace(*out)
+
+
+def _lane_params(params: MechParams, channels: int, device) -> MechParams:
+    """0-d or (P,) leaves -> contiguous (P * channels,) int32 leaves."""
+    out = []
+    for x in params:
+        x = torch.as_tensor(x).to(device=device, dtype=I32).reshape(-1)
+        out.append(x.repeat_interleave(channels).contiguous())
+    return MechParams(*out)
+
+
+def _unlane(cnt: Counters, dims: tuple) -> Counters:
+    """Lane-layout counters (N, ...) -> the JAX package's layout."""
+    return Counters(*[x.reshape(dims + tuple(x.shape[1:])) for x in cnt])
+
+
+def _n_params(params: MechParams) -> Optional[int]:
+    x = torch.as_tensor(params[0])
+    return None if x.dim() == 0 else int(x.shape[0])
+
+
+def _check_state(state: SimState, lanes: int):
+    got = state.cnt.reads.shape[0]
+    if got != lanes:
+        raise ValueError(f"state has {got} lanes; this trace and params "
+                         f"batch need {lanes}")
+
+
+def _advance(trace: Trace, static: StaticConfig, params: MechParams,
+             state: SimState, variant: str, device) -> SimState:
+    """Clone ``state`` to ``device`` and run every request of ``trace``
+    (leaves (T,)/(C, T)) through the step, over ``P x C`` lanes."""
+    dev = resolve_device(device)
+    C = 1 if np.ndim(trace.t_issue) == 1 else int(trace.t_issue.shape[0])
+    P = _n_params(params) or 1
+    _check_state(state, P * C)
+    step = make_step(static, variant=variant)
+    tr = _lane_trace(trace, P, dev)
+    lp = _lane_params(params, C, dev)
+    bank = BankState(*[x.to(dev).clone() if isinstance(x, torch.Tensor)
+                       else fts_lib.FTS(*[y.to(dev).clone() for y in x])
+                       for x in state.bank])
+    cnt = Counters(*[x.to(dev).clone() for x in state.cnt])
+    carry = (bank, cnt)
+    for t in range(tr.t_issue.shape[0]):
+        carry = step(lp, carry, Trace(*(f[t] for f in tr)))
+    return SimState(*carry)
+
+
+def sim_init(static: StaticConfig, geom: DRAMGeometry = GEOM,
+             channels: int | None = None, batch: int | None = None,
+             device=None) -> SimState:
+    """Fresh replay state with ``(batch or 1) * (channels or 1)`` lanes,
+    lane ``p * C + c`` for params point ``p`` on channel ``c``."""
+    lanes = (batch or 1) * (channels or 1)
+    return SimState(bank=init_state(static, geom, lanes, device),
+                    cnt=init_counters(geom, lanes, device))
+
+
+def finalize(state: SimState) -> Counters:
+    """End a replay: the final ``Counters``, in lane layout ``(N, ...)``."""
+    return state.cnt
+
+
+def resume(trace: Trace, static: StaticConfig, params: MechParams,
+           state: SimState, variant: str = "fused",
+           device=None) -> SimState:
+    """One segment of a chunked replay: advance ``state`` over ``trace``
+    ((T,) or (C, T) leaves).  ``params`` leaves are 0-d (one config) or
+    ``(P,)``; ``state`` must then hold ``P * C`` lanes.  The input state is
+    not modified."""
+    return _advance(trace, static, params, state, variant, device)
+
+
+def simulate(trace: Trace, static: StaticConfig, params: MechParams,
+             variant: str = "fused", device=None) -> Counters:
+    """One params point over a (T,) or (C, T) trace; counters shaped like
+    the JAX package's (scalars, or a leading (C,) axis)."""
+    multi = np.ndim(trace.t_issue) == 2
+    C = int(trace.t_issue.shape[0]) if multi else None
+    state = sim_init(static, channels=C, device=device)
+    cnt = finalize(_advance(trace, static, params, state, variant, device))
+    return _unlane(cnt, (C,) if multi else ())
+
+
+def run_sweep(trace: Trace, static: StaticConfig, params_batch: MechParams,
+              variant: str = "fused", device=None) -> Counters:
+    """A whole config grid sharing one static structure in one replay:
+    ``params_batch`` leaves are ``(P,)``; counters come back ``(P, ...)``
+    or ``(P, C, ...)`` for multi-channel traces, bitwise-equal to running
+    each point through ``run_channel``."""
+    multi = np.ndim(trace.t_issue) == 2
+    C = int(trace.t_issue.shape[0]) if multi else None
+    P = _n_params(params_batch)
+    if P is None:
+        raise ValueError("run_sweep needs params leaves with a (P,) axis")
+    state = sim_init(static, channels=C, batch=P, device=device)
+    cnt = finalize(_advance(trace, static, params_batch, state, variant,
+                            device))
+    return _unlane(cnt, (P, C) if multi else (P,))
+
+
+def run_channel(trace: Trace, cfg: MechConfig, t: DRAMTimings = DDR4,
+                device=None) -> Counters:
+    """Simulate one channel's request stream ((T,) trace leaves)."""
+    return simulate(trace, cfg.static, cfg.params(t, device), device=device)
+
+
+def run_channels(traces: Trace, cfg: MechConfig, t: DRAMTimings = DDR4,
+                 device=None) -> Counters:
+    """Simulate C independent channels: traces leaves shaped (C, T)."""
+    return simulate(traces, cfg.static, cfg.params(t, device), device=device)
+
+
+def run_channel_exact(trace: Trace, cfg: MechConfig, t: DRAMTimings = DDR4,
+                      device=None) -> Counters:
+    """Unpadded reference run: FTS allocated at exactly ``cfg.n_slots``
+    (``max == actual``).  Handles (T,) and (C, T) traces alike."""
+    return simulate(trace, cfg.exact_static, cfg.params(t, device),
+                    device=device)

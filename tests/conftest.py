@@ -162,3 +162,9 @@ def _install_shim():
 
 if not HAVE_HYPOTHESIS:
     _install_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of repro_torch on an NVIDIA GPU; "
+        "skips (inside the test) where torch.cuda.is_available() is false")
