@@ -1,6 +1,6 @@
 """Build and run the PyTorch port of the FIGCache simulator on one CUDA card.
 
-    python3 chip_smoke.py [--workloads 0,2,5,7,10,12,15,17]
+    python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on any failed check:
 
@@ -15,7 +15,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
 4. main path: ``simulator.run_eight_core_batch`` over the fig-8 workload set
    (benchmarks/common.py ALL_WL), 4 channels x 6144 requests, all six
    paper mechanisms, ``fts_kernel=True``; launch counts read just around
-   it; workload 15 rerun alone with the plain lookup and compared bitwise;
+   it; workload 15 rerun alone with the plain lookup, for the mechanisms
+   with a cache (the only ones that reach the lookup), compared bitwise;
 5. profile: device busy and idle share of the main path's steps at its
    shapes (torch.profiler), and the device ops that take the time;
 6. summary: one ``{"kernels": [...]}`` JSON line (device times from
@@ -26,7 +27,6 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import pathlib
 import statistics
@@ -224,7 +224,8 @@ def phase_golden(dev):
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
-def phase_main(dev, wl_idx):
+def phase_main(dev):
+    wl_idx = list(FIG8_WORKLOADS)
     all_wl = traces.eight_core_workloads()
     wls = [all_wl[i] for i in wl_idx]
     groups = []
@@ -250,8 +251,9 @@ def phase_main(dev, wl_idx):
         launches = fts_kernel.COUNTER.launches
     finally:
         dram.run_sweep = real_run_sweep
-    n_cached = sum(timing.paper_config(m).has_cache
-                   for m in simulator.PAPER_MECHS)
+    cached = [m for m in simulator.PAPER_MECHS
+              if timing.paper_config(m).has_cache]
+    n_cached = len(cached)
     log(f"[main] run_eight_core_batch: {len(wls)} workloads x "
         f"{N_CHANNELS} channels x {PER_CHANNEL} requests x "
         f"{len(simulator.PAPER_MECHS)} mechanisms in {wall:.1f} s; "
@@ -278,30 +280,30 @@ def phase_main(dev, wl_idx):
     log("[main] mean weighted speedup vs base over the workloads: " +
         ", ".join(f"{m}={v:.4f}" for m, v in avg.items()))
 
-    # workload 15 alone through the plain lookup: bitwise equal to its slice
-    if 15 in wl_idx:
-        before = fts_kernel.COUNTER.launches
-        t0 = time.perf_counter()
-        alone = simulator.run_eight_core(all_wl[15], per_channel=PER_CHANNEL,
-                                         device=dev)
-        check(fts_kernel.COUNTER.launches == before,
-              "plain-lookup rerun launched the kernel")
-        batch = res[wl_idx.index(15)]
-        for m in simulator.PAPER_MECHS:
-            for f, a, b in zip(dram.Counters._fields, alone[m].counters,
-                               batch[m].counters):
-                check(np.array_equal(a, b), f"wl15 {m} {f}: plain rerun "
-                      "differs from the kernel batch")
-        log(f"[main] workload 15 rerun alone with fts_kernel=False: counters "
-            f"bitwise equal to its batch slice ({time.perf_counter() - t0:.1f}"
-            " s)")
+    # workload 15 alone through the plain lookup: bitwise equal to its
+    # slice.  Only the cached mechanisms reach the lookup, so only they rerun.
+    before = fts_kernel.COUNTER.launches
+    t0 = time.perf_counter()
+    alone = simulator.run_eight_core(all_wl[15], mechanisms=cached,
+                                     per_channel=PER_CHANNEL, device=dev)
+    check(fts_kernel.COUNTER.launches == before,
+          "plain-lookup rerun launched the kernel")
+    batch = res[wl_idx.index(15)]
+    for m in cached:
+        for f, a, b in zip(dram.Counters._fields, alone[m].counters,
+                           batch[m].counters):
+            check(np.array_equal(a, b), f"wl15 {m} {f}: plain rerun "
+                  "differs from the kernel batch")
+    log(f"[main] workload 15 rerun alone with fts_kernel=False for {cached}: "
+        f"counters bitwise equal to its batch slice "
+        f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
 
 # ---------------------------------------------------------------------------
 # phase 5: where a main-path step's time goes
 
-def phase_profile(dev, wl_idx, steps=128):
+def phase_profile(dev, steps=128):
     """Profile ``steps`` requests of the main path's replay at its shapes
     (the workloads x 4 channels as lanes, S = 512): device busy time from
     CUPTI against the wall time of the same replay run unprofiled."""
@@ -309,7 +311,7 @@ def phase_profile(dev, wl_idx, steps=128):
     from torch.profiler import ProfilerActivity, profile
     all_wl = traces.eight_core_workloads()
     trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, steps, 2)
-           for i in wl_idx]
+           for i in FIG8_WORKLOADS]
     flat = dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
     for mech in ("figcache_fast", "base"):
         cfg = timing.paper_config(mech, fts_kernel=True)
@@ -346,12 +348,7 @@ def phase_profile(dev, wl_idx, steps=128):
                 f"{name[:90]}")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workloads", default=",".join(map(str, FIG8_WORKLOADS)),
-                    help="fig-8 workload indices of phase 4")
-    args = ap.parse_args(argv)
-    wl_idx = [int(x) for x in args.workloads.split(",")]
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
@@ -361,12 +358,10 @@ def main(argv=None):
     smi = nvidia_smi_line()
     log(f"[device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
-    if tuple(wl_idx) != FIG8_WORKLOADS:
-        log(f"[device] phase 4 cut to workloads {wl_idx} (of "
-            f"{list(FIG8_WORKLOADS)})")
 
     t0 = time.perf_counter()
-    _build.build(KERNELS)
+    for name in KERNELS:
+        _build.load(name)
     log(f"[build] {len(KERNELS)} kernel(s) built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (secs, report) in _build.BUILD_LOG.items():
@@ -376,8 +371,8 @@ def main(argv=None):
 
     max_err, timings = phase_kernels(dev)
     phase_golden(dev)
-    launches = phase_main(dev, wl_idx)
-    phase_profile(dev, wl_idx)
+    launches = phase_main(dev)
+    phase_profile(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     print(json.dumps({"kernels": [{

@@ -3,9 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root, at
 first use (the hash of the source keys the file, so an edited source
-rebuilds).  ``build`` starts one ``nvcc`` per source, all at once, and waits
-for them together.  Nothing here runs at import time: the CPU tests import
-every module on machines without ``nvcc``.
+rebuilds).  Nothing here runs at import time: the CPU tests import every
+module on machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -46,41 +45,34 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every listed kernel that is not built yet, in parallel.
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless it is built already; its library path.
 
-    Raises ``RuntimeError`` with the compiler's output if any build fails.
-    Each library is written to a temporary name and renamed into place, so
+    Raises ``RuntimeError`` with the compiler's output if the build fails.
+    The library is written to a temporary name and renamed into place, so
     a concurrent or interrupted build never leaves a half-written file."""
+    path = _lib_path(name)
+    if path.exists():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    procs = {}
+    tmp = path.with_suffix(f".tmp{os.getpid()}")
     t0 = time.perf_counter()
-    for n, path in paths.items():
-        if path.exists():
-            continue
-        tmp = path.with_suffix(f".tmp{os.getpid()}")
-        procs[n] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
-    for n, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc exit {proc.returncode})\n{out}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, paths[n])
-        BUILD_LOG[n] = (time.perf_counter() - t0, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build of {name} failed (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)
+    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout)
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib

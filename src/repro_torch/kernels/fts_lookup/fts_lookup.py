@@ -74,11 +74,7 @@ def fts_lookup(tags: torch.Tensor, score: torch.Tensor, bank: torch.Tensor,
     args = (tags.data_ptr(), score.data_ptr(), bank.data_ptr(),
             seg.data_ptr(), limit.data_ptr(), out.data_ptr(), n, n_banks, s,
             torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        err = launch(*args)
-    else:   # the stream belongs to another device than the current one
-        with torch.cuda.device(dev):
-            err = launch(*args)
+    err = launch(*args)
     if err != 0:
         raise RuntimeError(f"fts_lookup kernel launch failed: CUDA error "
                            f"{err}")
