@@ -1,25 +1,39 @@
-"""Build and run the PyTorch port of the FIGCache simulator on one CUDA card.
+"""Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
+simulator and the FIGCache-KV serving path.
 
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on any failed check:
 
 1. device: the card's name and power limit; build every CUDA kernel of the
-   port from ``src/repro_torch/csrc`` with nvcc (sm_90a), timed;
+   port from ``src/repro_torch/csrc`` with nvcc (sm_90a), one nvcc per
+   source, all started together, timed;
 2. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, bitwise, at the main path's shapes and at corner shapes,
-   then both timed with CUDA events (median of 25 samples), per eager call
-   and as device time (CUDA-graph replay), beside the kernel's byte bound;
+   on the card (fts_lookup and figaro_reloc bitwise, figcache_decode
+   within f32 2e-5 / bf16 2e-2), at the main paths' shapes and at corner
+   shapes, then both timed with CUDA events (median of 25 samples), per
+   eager call and as device time (CUDA-graph replay), beside the kernel's
+   bound and, where one exists, one PyTorch call computing the same;
 3. golden pins: the six FCFS fingerprints of tests/test_obs.py:108-153 on
-   the card, with the fused lookup kernel on and off (12 runs);
-4. main path: ``simulator.run_eight_core_batch`` over the fig-8 workload set
-   (benchmarks/common.py ALL_WL), 4 channels x 6144 requests, all six
-   paper mechanisms, ``fts_kernel=True``; launch counts read just around
-   it; workload 15 rerun alone with the plain lookup, for the mechanisms
-   with a cache (the only ones that reach the lookup), compared bitwise;
-5. profile: device busy and idle share of the main path's steps at its
+   the card, through the lookup kernel and through its plain version
+   (12 runs);
+4. simulator main path: ``simulator.run_eight_core_batch`` over the fig-8
+   workload set (benchmarks/common.py ALL_WL), 4 channels x 6144 requests,
+   all six paper mechanisms, default configs (the card runs the lookup
+   kernel by default); launch counts read just around it; workload 15
+   rerun alone with the plain lookup patched in, for the mechanisms with a
+   cache (the only ones that reach the lookup), compared bitwise;
+5. FIGCache-KV path: ``serve.demo_figkv`` at Qwen2-7B's full attention
+   width (28 query / 4 KV heads, head_dim 128, bf16, default FIGKVConfig),
+   batch 8, a 32768-token prompt and 256 decode steps; launch counts read
+   just around it; the same inputs rerun with the two kernels' plain
+   versions patched in at the figkv module's call sites, every FTS leaf and
+   pool compared bitwise, outputs within bf16 atol 2e-2; then
+   ``embed_cache_lookup`` over Qwen2-7B's embedding table, 256 steps of 64
+   Zipf-drawn tokens, every output equal to ``table[tokens]``;
+6. profile: device busy and idle share of the simulator's steps at its
    shapes (torch.profiler), and the device ops that take the time;
-6. summary: one ``{"kernels": [...]}`` JSON line (device times from
+7. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -27,6 +41,7 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -40,16 +55,33 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import dram, simulator, timing, traces  # noqa: E402
+from repro_torch.figkv import embed_cache, kv_cache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.figaro_reloc import \
+    figaro_reloc as reloc_kernel  # noqa: E402
+from repro_torch.kernels.figaro_reloc.ops import segment_rows  # noqa: E402
+from repro_torch.kernels.figaro_reloc.ref import reloc_ref  # noqa: E402
+from repro_torch.kernels.figcache_decode import \
+    figcache_decode as decode_kernel  # noqa: E402
+from repro_torch.kernels.figcache_decode.ref import \
+    figcache_decode_ref  # noqa: E402
 from repro_torch.kernels.fts_lookup import fts_lookup as fts_kernel  # noqa: E402
 from repro_torch.kernels.fts_lookup.ref import fts_lookup_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
 N_CHANNELS = 4
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-KERNELS = ("fts_lookup",)
+BF16_FLOP_PER_S = 989e12                        # dense tensor-core peak
+KERNELS = ("fts_lookup", "figaro_reloc", "figcache_decode")
+# the FIGCache-KV phase: Qwen2-7B (src/repro/configs/qwen2_7b.py), its 32k
+# pretraining context (arXiv:2407.10671), 256 decode steps, batch 8
+FIGKV_ARCH, FIGKV_BATCH, FIGKV_PROMPT, FIGKV_GEN = "qwen2-7b", 8, 32768, 256
+FIGKV_N_SEL = 8                                 # demo_figkv's n_sel
+EMBED_STEPS, EMBED_TOKENS, ZIPF_S = 256, 64, 1.1
 
 # (acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks, row_hits,
 #  cache_hits, insertions, sum(lat_sum_ns), sum(req_cnt), t_end): the FCFS
@@ -132,6 +164,51 @@ def graph_ms(fn, reps=20, samples=25) -> float:
     return statistics.median(per)
 
 
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Swap module attributes (a call site's function) for the duration."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def plain_lookup_op(tags, score, bank, seg, limit):
+    """``ops.fts_lookup_op`` with the plain version on the card."""
+    out = fts_lookup_ref(tags, score, bank, seg, limit)
+    return out[:, 0] != 0, out[:, 1], out[:, 2]
+
+
+def plain_reloc_segments(pool, fast, src_segs, dst_slots):
+    """``ops.reloc_segments`` with the plain version on the card."""
+    reloc_ref(*segment_rows(pool, fast, src_segs, dst_slots))
+    return fast
+
+
+def plain_decode_attend(q, k, v, valid):
+    """``ops.decode_attend`` with the plain version on the card."""
+    return figcache_decode_ref(q[:, 0], k, v, valid)[:, None]
+
+
+def timed(name, kernel, plain, library, bound):
+    """Device time per call (CUDA-graph replay) of the kernel, its plain
+    version and the library call (or None), and the kernel's eager time."""
+    k_call = time_ms(kernel)
+    res = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+           "library_ms": graph_ms(library) if library else None,
+           "bound_ms": bound}
+    lib = "none" if library is None else f"{res['library_ms'] * 1e3:.3f} us"
+    log(f"[kernels] {name}: device time (CUDA-graph replay) kernel "
+        f"{res['ms'] * 1e3:.3f} us, plain {res['plain_ms'] * 1e3:.3f} us, "
+        f"library {lib}; per eager call kernel {k_call * 1e3:.2f} us; bound "
+        f"{bound * 1e3:.4f} us")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 2: fts_lookup kernel vs plain
 
@@ -194,6 +271,158 @@ def phase_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: figaro_reloc kernel vs plain
+
+def figkv_geometry():
+    cfg = configs.get(FIGKV_ARCH)
+    fig = cfg.figkv
+    s_max = FIGKV_PROMPT + FIGKV_GEN + fig.seg_tokens
+    return cfg, fig, s_max, s_max // fig.seg_tokens
+
+
+def reloc_case(dtype, g, n_segs, n_slots, E, pad, seed, dev):
+    """A pool seen through a strided view (group and segment strides padded
+    by ``pad`` elements, as FIGCache-KV's slice of its slow pool), a fast
+    pool, two moves per group with one masked (src -1, dst -1 or both)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randint(-100, 100, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    pool = rand(g, n_segs + 1, E + pad)[:, 1:, :E]
+    fast = rand(g, n_slots, E)
+    src = torch.randint(0, n_segs, (g, 2), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dst = torch.stack([torch.randperm(n_slots, generator=gen, device=dev)[:2]
+                       for _ in range(g)]).to(torch.int32)
+    src[0, 1] = -1
+    dst[g - 1, 0] = -1
+    return pool, fast, src, dst
+
+
+def phase_reloc(dev):
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        # a 16-token Qwen2-7B KV segment, an embedding segment of 16 rows x
+        # 3584, a ragged payload and a single element
+        for E in (16 * 4 * 128, 3584 * 16, 100, 1):
+            for pad in (0, 3):
+                pool, fast, src, dst = reloc_case(dtype, 3, 7, 5, E, pad,
+                                                  seed=E + pad, dev=dev)
+                want = reloc_ref(pool, fast.clone(), src, dst)
+                got = reloc_kernel.reloc(pool, fast, src, dst)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"figaro_reloc kernel != plain "
+                      f"at {dtype} E={E} pad={pad}")
+                n += 1
+    log(f"[kernels] figaro_reloc == plain bitwise on {n} cases (f32/bf16/"
+        "int8 x E in {8192, 57344, 100, 1} x aligned/strided pools, masked "
+        "moves); max_abs_err=0")
+    # one FIGCache-KV step's K relocation: a (B, n_segs, E) view of the
+    # bf16 slow pool, one move per sequence
+    cfg, fig, s_max, n_segs = figkv_geometry()
+    B, st, hkv, d = FIGKV_BATCH, fig.seg_tokens, cfg.n_kv_heads, cfg.hd
+    slots = fig.fast_rows * fig.segs_per_row
+    pool = torch.randn((B, s_max, hkv, d), dtype=torch.bfloat16, device=dev)
+    fast = torch.zeros((B, slots, st, hkv, d), dtype=torch.bfloat16,
+                       device=dev)
+    segs = pool[:, :n_segs * st].view(B, n_segs, st, hkv, d)
+    src = torch.randint(0, n_segs, (B, 1), device=dev, dtype=torch.int32)
+    dst = torch.randint(0, slots, (B, 1), device=dev, dtype=torch.int32)
+    p3, f3, s2, d2 = segment_rows(segs, fast, src, dst)
+    groups = torch.arange(B, device=dev)
+    s_l, d_l = src[:, 0].long(), dst[:, 0].long()
+    seg_bytes = st * hkv * d * 2
+    bound = 2 * B * seg_bytes / HBM_BYTES_PER_S * 1e3       # read + write
+    res = timed(f"figaro_reloc B={B} moves of {seg_bytes} bytes (one step's "
+                "K; library = fast[g, dst] = pool[g, src], two ops)",
+                lambda: reloc_kernel.reloc(p3, f3, s2, d2),
+                lambda: reloc_ref(p3, f3, s2, d2),
+                lambda: f3.index_put_((groups, d_l), p3[groups, s_l]), bound)
+    log(f"[kernels] figaro_reloc byte bound of one decode step's K+V "
+        f"relocation (2 launches, {2 * B * seg_bytes} bytes read and "
+        f"written): {2 * bound * 1e3:.4f} us")
+    res.update(max_abs_err=0, bound_by="bytes")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2: figcache_decode kernel vs plain
+
+def decode_case(B, H, hkv, L, D, dtype, seed, dev):
+    """q/k/v from N(0, 1); ~60 % valid, entry 0 valid, except sequence 0
+    (one valid entry) and the last sequence (fully masked) when B > 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    valid = torch.rand((B, L), generator=gen, device=dev) < 0.6
+    valid[:, 0] = True
+    if B > 1:
+        valid[0] = False
+        valid[0, L // 2] = True
+        valid[B - 1] = False
+    return rand(B, H, D), rand(B, L, hkv, D), rand(B, L, hkv, D), valid
+
+
+def decode_bytes(B, H, hkv, L, D, item):
+    """q read, K and V read once, the mask read, out written."""
+    return 2 * B * H * D * item + 2 * B * L * hkv * D * item + B * L
+
+
+def phase_decode(dev):
+    cfg, fig, _, _ = figkv_geometry()
+    H, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L = FIGKV_N_SEL * fig.seg_tokens + 2 * fig.seg_tokens   # 160
+    shapes = [(FIGKV_BATCH, H, hkv, L, D), (2, 4, 4, 512, 64),
+              (1, 8, 8, 256, 128), (3, 2, 2, 384, 64)]
+    max_err = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for i, (B, h, g, length, d) in enumerate(shapes):
+            args = decode_case(B, h, g, length, d, dtype, seed=i, dev=dev)
+            got = decode_kernel.figcache_decode(*args)
+            want = figcache_decode_ref(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            max_err = max(max_err, err)
+            check(err <= tol, f"figcache_decode kernel vs plain {err} > {tol}"
+                  f" at {dtype} (B, H, Hkv, L, D)={(B, h, g, length, d)}")
+            if B > 1:   # the one-valid row and the fully masked row
+                v = args[2].float()
+                one = v[0, length // 2].repeat_interleave(h // g, dim=0)
+                mean = v[B - 1].mean(dim=0).repeat_interleave(h // g, dim=0)
+                check(float((got[0].float() - one).abs().max()) <= tol
+                      and float((got[B - 1].float() - mean).abs().max())
+                      <= 2 * tol, "figcache_decode: one-valid / fully masked "
+                      "rows do not return v / mean(v)")
+    log(f"[kernels] figcache_decode within f32 2e-5 / bf16 2e-2 of plain on "
+        f"{2 * len(shapes)} cases (B, H, Hkv, L, D) in {shapes}, with a "
+        f"one-valid and a fully masked row; max_abs_err={max_err:.3g}")
+    B = FIGKV_BATCH
+    q, k, v, valid = decode_case(B, H, hkv, L, D, torch.bfloat16, seed=7,
+                                 dev=dev)
+    valid[0, 0] = valid[B - 1, 0] = True    # SDPA needs a valid entry per row
+    qs = q[:, :, None]
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = decode_bytes(B, H, hkv, L, D, 2)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * H * L * D / BF16_FLOP_PER_S * 1e3
+    res = timed(f"figcache_decode bf16 B={B} H={H} Hkv={hkv} L={L} D={D} "
+                f"({n_bytes} bytes; library = SDPA, bool mask, GQA)",
+                lambda: decode_kernel.figcache_decode(q, k, v, valid),
+                lambda: figcache_decode_ref(q, k, v, valid),
+                lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                max(t_bytes, t_ops))
+    res.update(max_abs_err=max_err,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: golden pins
 
 def reuse_trace(n=320):
@@ -210,14 +439,17 @@ def phase_golden(dev):
     tr = reuse_trace()
     t0 = time.perf_counter()
     for mech, want in GOLDEN_FCFS.items():
-        for kern in (True, False):
-            kw = {"cache_rows": 2} if mech not in ("base", "lldram") else {}
-            cfg = timing.paper_config(mech, fts_kernel=kern, **kw)
-            cnt = dram.run_channel(tr, cfg, device=dev)
+        kw = {"cache_rows": 2} if mech not in ("base", "lldram") else {}
+        cfg = timing.paper_config(mech, **kw)
+        for lookup, patch in (("kernel", {}),
+                              ("plain", {"fts_lookup_op": plain_lookup_op})):
+            with patched(dram, **patch):
+                cnt = dram.run_channel(tr, cfg, device=dev)
             got = tuple(int(x.sum()) for x in cnt)
-            check(got == want, f"golden {mech} fts_kernel={kern}: {got} != "
+            check(got == want, f"golden {mech} ({lookup} lookup): {got} != "
                   f"{want}")
     log(f"[golden] 12/12 FCFS fingerprints match tests/test_obs.py GOLDEN "
+        f"through the lookup kernel and its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -244,9 +476,8 @@ def phase_main(dev):
     try:
         fts_kernel.COUNTER.launches = 0
         t0 = time.perf_counter()
-        res = simulator.run_eight_core_batch(
-            wls, per_channel=PER_CHANNEL,
-            cfg_overrides={"fts_kernel": True}, device=dev)
+        res = simulator.run_eight_core_batch(wls, per_channel=PER_CHANNEL,
+                                             device=dev)
         wall = time.perf_counter() - t0
         launches = fts_kernel.COUNTER.launches
     finally:
@@ -284,8 +515,9 @@ def phase_main(dev):
     # slice.  Only the cached mechanisms reach the lookup, so only they rerun.
     before = fts_kernel.COUNTER.launches
     t0 = time.perf_counter()
-    alone = simulator.run_eight_core(all_wl[15], mechanisms=cached,
-                                     per_channel=PER_CHANNEL, device=dev)
+    with patched(dram, fts_lookup_op=plain_lookup_op):
+        alone = simulator.run_eight_core(all_wl[15], mechanisms=cached,
+                                         per_channel=PER_CHANNEL, device=dev)
     check(fts_kernel.COUNTER.launches == before,
           "plain-lookup rerun launched the kernel")
     batch = res[wl_idx.index(15)]
@@ -294,58 +526,185 @@ def phase_main(dev):
                            batch[m].counters):
             check(np.array_equal(a, b), f"wl15 {m} {f}: plain rerun "
                   "differs from the kernel batch")
-    log(f"[main] workload 15 rerun alone with fts_kernel=False for {cached}: "
+    log(f"[main] workload 15 rerun alone with the plain lookup for {cached}: "
         f"counters bitwise equal to its batch slice "
         f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where a main-path step's time goes
+# phase 5: the FIGCache-KV path
 
-def phase_profile(dev, steps=128):
-    """Profile ``steps`` requests of the main path's replay at its shapes
-    (the workloads x 4 channels as lanes, S = 512): device busy time from
-    CUPTI against the wall time of the same replay run unprofiled."""
+def phase_figkv(dev):
+    cfg, fig, s_max, n_segs = figkv_geometry()
+    log(f"[figkv] {cfg.name}: H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"D={cfg.hd} bf16, batch {FIGKV_BATCH}, prompt {FIGKV_PROMPT}, "
+        f"{FIGKV_GEN} decode steps, s_max {s_max} ({n_segs} segments of "
+        f"{fig.seg_tokens}), fast pool {fig.fast_rows}x{fig.segs_per_row}")
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = serve.demo_figkv(cfg, gen, FIGKV_PROMPT, FIGKV_GEN,
+                               FIGKV_BATCH, device=dev)
+        return out, torch.cuda.max_memory_allocated(dev)
+
+    # warm-up at a small size: the first calls of cuBLAS, sort and friends
+    serve.demo_figkv(cfg, torch.Generator(device=dev).manual_seed(2), 256, 4,
+                     FIGKV_BATCH, device=dev)
+    reloc_kernel.COUNTER.launches = decode_kernel.COUNTER.launches = 0
+    kern, peak = run()
+    launches = {"figaro_reloc": reloc_kernel.COUNTER.launches,
+                "figcache_decode": decode_kernel.COUNTER.launches}
+    check(launches == {"figaro_reloc": 2 * FIGKV_GEN,
+                       "figcache_decode": FIGKV_GEN},
+          f"figkv launches {launches}, expected 2 x {FIGKV_GEN} relocations "
+          f"(K and V per step) and {FIGKV_GEN} decodes")
+    check(kern.out.shape == (FIGKV_GEN, FIGKV_BATCH, 1, cfg.n_heads, cfg.hd)
+          and bool(torch.isfinite(kern.out.float()).all()),
+          "figkv: outputs not finite or of the wrong shape")
+    with patched(kv_cache, reloc_segments=plain_reloc_segments,
+                 decode_attend=plain_decode_attend):
+        plain, _ = run()
+    check(reloc_kernel.COUNTER.launches == 2 * FIGKV_GEN
+          and decode_kernel.COUNTER.launches == FIGKV_GEN,
+          "the plain rerun launched a kernel")
+    a, b = kern.state, plain.state
+    for name, x, y in zip(a.fts._fields, a.fts, b.fts):
+        check(torch.equal(x, y), f"figkv: FTS leaf {name} differs from the "
+              "plain rerun")
+    for name in ("fast_k", "fast_v", "pool_k", "pool_v", "seg_key"):
+        check(torch.equal(getattr(a, name), getattr(b, name)),
+              f"figkv: {name} differs from the plain rerun")
+    err = float((kern.out.float() - plain.out.float()).abs().max())
+    check(err <= 2e-2, f"figkv: outputs differ from the plain rerun by {err}")
+    slots = fig.fast_rows * fig.segs_per_row
+    log(f"[figkv] launches figaro_reloc={launches['figaro_reloc']} "
+        f"figcache_decode={launches['figcache_decode']}; every FTS leaf, "
+        f"both fast pools and both slow pools bitwise equal to the plain "
+        f"rerun, outputs within {err:.3g} (bf16 atol 2e-2)")
+    tok_s = FIGKV_BATCH * FIGKV_GEN / kern.timings["decode_s"]
+    log(f"[figkv] kernels: prefill {kern.timings['prefill_s'] * 1e3:.1f} ms, "
+        f"decode {kern.timings['ms_per_step']:.3f} ms/step wall over "
+        f"{FIGKV_GEN} steps ({tok_s:.0f} tokens/s); plain rerun "
+        f"{plain.timings['ms_per_step']:.3f} ms/step; fast pool warm {kern.warm}/{FIGKV_BATCH * slots} slots; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    del kern, plain, a, b
+    torch.cuda.empty_cache()
+
+    # where a decode step's time goes: 16 steps at the same shapes, q/k/v
+    # drawn beforehand, on a fresh 32k-token state (3 replays of 16 steps)
+    steps, st = 16, fig.seg_tokens
+    B, H, hkv, d = FIGKV_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
+                           device=dev)
+
+    state = kv_cache.figkv_init(B, FIGKV_PROMPT + 3 * steps + st, hkv, d, fig,
+                                device=dev)
+    state = kv_cache.figkv_prefill(state, draw(B, FIGKV_PROMPT, hkv, d),
+                                   draw(B, FIGKV_PROMPT, hkv, d))
+    qkv = [(draw(B, 1, H, d), draw(B, 1, hkv, d), draw(B, 1, hkv, d))
+           for _ in range(steps)]
+    box = [state]
+
+    def replay():
+        for q, kn, vn in qkv:
+            box[0], _ = kv_cache.figkv_decode_step(
+                box[0], q, kn, vn, fig, n_sel=FIGKV_N_SEL, recent=2 * st)
+        torch.cuda.synchronize()
+
+    profile_replay(f"figkv decode B={B} (kernels)", replay, steps)
+    del state, box
+    torch.cuda.empty_cache()
+
+    # FIGCache for the embedding gather over Qwen2-7B's table
+    V, d = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn((V, d), generator=gen, dtype=torch.bfloat16,
+                        device=dev)
+    zipf = torch.arange(1, V + 1, device=dev, dtype=torch.float64) ** -ZIPF_S
+    toks = torch.multinomial(zipf.float(), EMBED_STEPS * EMBED_TOKENS,
+                             replacement=True, generator=gen).view(
+        EMBED_STEPS, EMBED_TOKENS)
+    cache = embed_cache.embed_cache_init(d, fig, device=dev)
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    before = reloc_kernel.COUNTER.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(EMBED_STEPS):
+        cache, out = embed_cache.embed_cache_lookup(cache, table, toks[i], fig,
+                                                    i)
+        wrong += (out != table[toks[i]]).sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hits, lookups = int(cache.hits), int(cache.lookups)
+    check(int(wrong) == 0, f"embed cache: {int(wrong)} output elements differ "
+          "from table[tokens]")
+    check(hits > 0 and lookups == EMBED_STEPS * EMBED_TOKENS,
+          f"embed cache: hits {hits}, lookups {lookups}")
+    log(f"[figkv] embed_cache_lookup: table {V}x{d} bf16, {EMBED_STEPS} steps "
+        f"of {EMBED_TOKENS} Zipf({ZIPF_S}) tokens in {wall * 1e3:.1f} ms "
+        f"({wall / EMBED_STEPS * 1e3:.3f} ms/step); outputs == table[tokens] "
+        f"bitwise; hits {hits}/{lookups}; figaro_reloc launches "
+        f"{reloc_kernel.COUNTER.launches - before}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where a simulator step's time goes
+
+def profile_replay(label, replay, steps):
+    """Device busy time of ``replay()`` (``steps`` steps, ending in a
+    synchronise) from CUPTI, against the wall time of the same replay run
+    unprofiled; the device ops that take the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    replay()
+    t0 = time.perf_counter()
+    replay()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        log(f"[profile] {label}: the profiler saw no device activity; device "
+            "busy share not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
+    by_name = {}
+    for e in kern:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"[profile] {label} steps={steps}: wall {wall / steps * 1e3:.3f} "
+        f"ms/step unprofiled, device busy {busy / steps * 1e3:.3f} ms/step "
+        f"({len(kern) / steps:.1f} device ops/step), device idle share "
+        f"{1 - busy / wall:.4f}")
+    for name, (us, c) in top:
+        log(f"[profile]   {us / c:8.3f} us x {c / steps:5.1f}/step  "
+            f"{name[:90]}")
+
+
+def phase_profile(dev, steps=128):
+    """Profile ``steps`` requests of the simulator's replay at its shapes
+    (the workloads x 4 channels as lanes, S = 512)."""
     all_wl = traces.eight_core_workloads()
     trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, steps, 2)
            for i in FIG8_WORKLOADS]
     flat = dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
     for mech in ("figcache_fast", "base"):
-        cfg = timing.paper_config(mech, fts_kernel=True)
+        cfg = timing.paper_config(mech)
         params = timing.stack_params([cfg.params(device=dev)])
 
         def replay():
             dram.run_sweep(flat, cfg.static, params, device=dev)
             torch.cuda.synchronize()
 
-        replay()
-        t0 = time.perf_counter()
-        replay()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            replay()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not kern:
-            log(f"[profile] {mech}: the profiler saw no device activity; "
-                "device busy share not measured")
-            continue
-        busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
-        by_name = {}
-        for e in kern:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-        log(f"[profile] {mech} lanes={flat.t_issue.shape[0]} steps={steps}: "
-            f"wall {wall / steps * 1e3:.3f} ms/step unprofiled, device busy "
-            f"{busy / steps * 1e3:.3f} ms/step ({len(kern) / steps:.1f} "
-            f"device ops/step), device idle share {1 - busy / wall:.4f}")
-        for name, (us, c) in top:
-            log(f"[profile]   {us / c:8.3f} us x {c / steps:5.1f}/step  "
-                f"{name[:90]}")
+        profile_replay(f"{mech} lanes={flat.t_issue.shape[0]}", replay, steps)
 
 
 def main():
@@ -360,9 +719,10 @@ def main():
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
+    _build.build_all(KERNELS)
     for name in KERNELS:
         _build.load(name)
-    log(f"[build] {len(KERNELS)} kernel(s) built in "
+    log(f"[build] {len(KERNELS)} kernels built in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (secs, report) in _build.BUILD_LOG.items():
         for line in report.splitlines():
@@ -370,18 +730,33 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     max_err, timings = phase_kernels(dev)
+    reloc = phase_reloc(dev)
+    decode = phase_decode(dev)
     phase_golden(dev)
     launches = phase_main(dev)
+    figkv_launches = phase_figkv(dev)
     phase_profile(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "fts_lookup", "route": "cuda",
         "source": "src/repro_torch/csrc/fts_lookup.cu",
         "replaces": "src/repro/kernels/fts_lookup/fts_lookup.py:50",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}]
+    for name, res, line in (("figaro_reloc", reloc, 38),
+                            ("figcache_decode", decode, 59)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
+            "launches": figkv_launches[name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Carry simulator state between the JAX package and the PyTorch port.
+"""Carry state between the JAX package and the PyTorch port.
 
 A simulator has no weights; what a replay carries is its config's numeric
-knobs (``MechParams``) and its scan state (``SimState``).  These helpers take
-them as numpy arrays — the JAX package's leaves after ``np.asarray`` — so a
-replay started in one package can finish in the other.  Nothing here
-imports the JAX package.
+knobs (``MechParams``) and its scan state (``SimState``).  FIGCache-KV
+carries its ``FigKVState`` and an embedding cache its ``EmbedCache``.
+These helpers take them as numpy arrays — the JAX package's leaves after
+``np.asarray`` — so a run started in one package can finish in the other.
+Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.core import dram
 from repro_torch.core import fts as fts_lib
 from repro_torch.core.timing import MechParams
 from repro_torch.device import resolve_device
+from repro_torch.figkv import EmbedCache, FigKVState
 
 # unbatched rank and dtype of every SimState leaf, in the JAX package's
 # tree-leaves order (NamedTuple fields depth first)
@@ -94,3 +96,43 @@ def sim_state_from_numpy(bank_leaves: Sequence, cnt_leaves: Sequence,
 def counters_to_numpy(cnt: dram.Counters) -> Dict[str, np.ndarray]:
     """``Counters`` -> ``{field: numpy array}`` (copies to the host)."""
     return {f: x.detach().cpu().numpy() for f, x in zip(cnt._fields, cnt)}
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array (bf16 ones too, as the JAX package hands them out) ->
+    a tensor of the same dtype that owns its memory."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def figkv_state_from_numpy(leaves: Sequence, device=None) -> FigKVState:
+    """The JAX package's ``jax.tree.leaves(FigKVState)`` as numpy arrays ->
+    the port's ``FigKVState``, so a decode started in one package can
+    continue in the other: pool_k, pool_v, seg_key, fast_k, fast_v, the 12
+    FTS leaves (leading batch axis), length."""
+    dev = resolve_device(device)
+    n_fts = len(fts_lib.FTS._fields)
+    if len(leaves) != 6 + n_fts:
+        raise ValueError(f"expected {6 + n_fts} FigKVState leaves, got "
+                         f"{len(leaves)}")
+    t = [_tensor(x, dev) for x in leaves[:5 + n_fts]]
+    return FigKVState(*t[:5], fts=fts_lib.FTS(*t[5:]),
+                      length=int(np.asarray(leaves[-1])))
+
+
+def embed_cache_from_numpy(leaves: Sequence, device=None) -> EmbedCache:
+    """The JAX package's ``jax.tree.leaves(EmbedCache)`` as numpy arrays ->
+    the port's ``EmbedCache``: fast, the 12 FTS leaves (one store, which
+    gains the port's lane axis), hits, lookups."""
+    dev = resolve_device(device)
+    n_fts = len(fts_lib.FTS._fields)
+    if len(leaves) != 3 + n_fts:
+        raise ValueError(f"expected {3 + n_fts} EmbedCache leaves, got "
+                         f"{len(leaves)}")
+    t = [_tensor(x, dev) for x in leaves]
+    return EmbedCache(fast=t[0], fts=fts_lib.FTS(*[x[None] for x in
+                                                    t[1:1 + n_fts]]),
+                      hits=t[-2], lookups=t[-1])

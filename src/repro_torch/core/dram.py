@@ -16,9 +16,13 @@ bus.  All of it is int32 (bool for flags) and updated in place by the step:
 A step reads nothing back to the host — branches are ``torch.where`` — so
 on a CUDA device the loop only enqueues work.
 
-``StaticConfig.fts_kernel`` routes the tag compare + victim argmin through
-``kernels/fts_lookup`` (the hand-written CUDA kernel on a CUDA device, its
-plain PyTorch version on the CPU).
+On a CUDA device the tag compare + victim argmin of every cached step
+goes through ``kernels/fts_lookup``, the hand-written CUDA kernel, whatever
+``StaticConfig.fts_kernel`` says: the flag keeps the JAX package's default
+(False) so that configs compare field for field, and the card runs its
+kernel by default all the same.  On the CPU ``fts_kernel=True`` routes the
+same fused pass through the kernel's plain PyTorch version, and the default
+takes the inline torch lookup; both give the same counters bit for bit.
 
 Not ported yet (ROADMAP.md, Queue 1): the telemetry windows
 (``static.telemetry > 0``) and the ``dense`` reference body, both of which
@@ -241,7 +245,7 @@ def make_decision_fn(static: StaticConfig, geom: DRAMGeometry = GEOM):
                     != reserved_sub
             else:
                 cacheable = True
-            if static.fts_kernel:
+            if static.fts_kernel or f.tags.is_cuda:
                 # fused pass: tag compare + the policy's masked victim
                 # argmin in one visit of the bank row.  Relies on the
                 # in-scan invariant "invalid => tag == -1"

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root, at
 first use (the hash of the source keys the file, so an edited source
-rebuilds).  Nothing here runs at import time: the CPU tests import every
-module on machines without ``nvcc``.
+rebuilds); ``build_all`` starts one ``nvcc`` per source, all at once.
+Nothing here runs at import time: the CPU tests import every module on
+machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -45,34 +46,43 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile kernel ``name`` unless it is built already; its library path.
+def build_all(names: Sequence[str]) -> List[Path]:
+    """Compile the kernels in ``names`` that are not built yet, one ``nvcc``
+    per source, all started together; their library paths.
 
-    Raises ``RuntimeError`` with the compiler's output if the build fails.
-    The library is written to a temporary name and renamed into place, so
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    Each library is written to a temporary name and renamed into place, so
     a concurrent or interrupted build never leaves a half-written file."""
-    path = _lib_path(name)
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build of {name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)
-    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout)
-    return path
+    paths = [_lib_path(n) for n in names]
+    todo = [(n, p) for n, p in zip(names, paths) if not p.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+    procs = []
+    for name, path in todo:
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        procs.append((name, path, tmp, time.perf_counter(), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, path, tmp, t0, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"kernel build of {name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, path)
+        BUILD_LOG[name] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build_all([name])[0]))
         _LOADED[name] = lib
     return lib
