@@ -33,7 +33,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    Zipf-drawn tokens, every output equal to ``table[tokens]``;
 6. profile: device busy and idle share of the simulator's steps at its
    shapes (torch.profiler), and the device ops that take the time;
-7. summary: one ``{"kernels": [...]}`` JSON line (device times from
+7. flash_attention kernel vs plain: the 18 cases of
+   tests/test_kernels.py:20-37 (f32 / bf16 x causal, full, window 96), a
+   ragged S (100, 1000), GQA (Hkv < H) and Qwen2-7B's prefill (B 4, S 4096,
+   28 query / 4 KV heads, D 128, bf16), within f32 2e-5 / bf16 2e-2 and,
+   per output row, within f32 1e-4 / bf16 1e-2 of the row's largest
+   value; then
+   at the Qwen2-7B shape the kernel, its plain version and SDPA (causal,
+   GQA) timed as device time, beside the FLOP bound;
+8. LM serving: ``serve.run("qwen2-7b", reduced=False)`` (all 28 layers at
+   full width, random weights from seed 0), 4 requests of 4096 prompt
+   tokens and 64 greedy tokens each; flash_attention launches read just
+   around it (28, one per layer); finite logits; a warm prefill equal to
+   the served one; the prefill rerun with the plain version patched in at
+   its call site, every layer's kernel output held against the plain one
+   on that layer's inputs (the bound and its reason are in ``phase_lm``);
+   prefill ms, decode ms/step, tokens/s, peak device memory, and a profile
+   of the decode step;
+9. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -67,21 +84,30 @@ from repro_torch.kernels.figcache_decode import \
     figcache_decode as decode_kernel  # noqa: E402
 from repro_torch.kernels.figcache_decode.ref import \
     figcache_decode_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_ref  # noqa: E402
 from repro_torch.kernels.fts_lookup import fts_lookup as fts_kernel  # noqa: E402
 from repro_torch.kernels.fts_lookup.ref import fts_lookup_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
 N_CHANNELS = 4
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12                        # dense tensor-core peak
-KERNELS = ("fts_lookup", "figaro_reloc", "figcache_decode")
+KERNELS = ("fts_lookup", "figaro_reloc", "figcache_decode",
+           "flash_attention")
 # the FIGCache-KV phase: Qwen2-7B (src/repro/configs/qwen2_7b.py), its 32k
 # pretraining context (arXiv:2407.10671), 256 decode steps, batch 8
 FIGKV_ARCH, FIGKV_BATCH, FIGKV_PROMPT, FIGKV_GEN = "qwen2-7b", 8, 32768, 256
 FIGKV_N_SEL = 8                                 # demo_figkv's n_sel
 EMBED_STEPS, EMBED_TOKENS, ZIPF_S = 256, 64, 1.1
+# LM serving: Qwen2-7B at full width, 4 requests of 4096 prompt tokens and
+# 64 generated tokens each
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-7b", 4, 4096, 64
 
 # (acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks, row_hits,
 #  cache_hits, insertions, sum(lat_sum_ns), sum(req_cnt), t_end): the FCFS
@@ -192,6 +218,11 @@ def plain_reloc_segments(pool, fast, src_segs, dst_slots):
 def plain_decode_attend(q, k, v, valid):
     """``ops.decode_attend`` with the plain version on the card."""
     return figcache_decode_ref(q[:, 0], k, v, valid)[:, None]
+
+
+def plain_mha(q, k, v, *, causal=True, window=0):
+    """``ops.mha`` with the plain version on the card."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def timed(name, kernel, plain, library, bound):
@@ -707,6 +738,219 @@ def phase_profile(dev, steps=128):
         profile_replay(f"{mech} lanes={flat.t_issue.shape[0]}", replay, steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: flash_attention kernel vs plain
+
+def flash_case(B, S, H, hkv, D, dtype, seed, dev):
+    """q (B, S, H, D), k/v (B, S, Hkv, D) from N(0, 1) in ``dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, S, H, D), (B, S, hkv, D), (B, S, hkv, D))]
+
+
+def flash_work(B, S, H, hkv, D, item, causal, window):
+    """(FLOP, bytes) one prefill attention needs: 4 D FLOP (two products)
+    for every (query, key) pair the masks leave open, summed over rows;
+    q, k, v read once and the output written once, K/V at Hkv heads."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i + 1 if causal else S
+        pairs += hi - lo
+    return 4 * D * B * H * pairs, item * (2 * B * S * H * D +
+                                         2 * B * S * hkv * D)
+
+
+def row_rel_err(got, want):
+    """Largest over (sequence, position, head) rows of max|got - want| /
+    max|want|: the error against the size of each output row.  At the
+    Qwen2-7B shape a row averages ~2000 keys and its outputs are ~0.03, the
+    size of the absolute bf16 bar, which a dropped or doubled key tile or a
+    wrong rescale would pass; against the row's own size they stand out."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def phase_flash(dev):
+    cases = []
+    for BH, S, D in ((2, 128, 64), (4, 256, 64), (1, 256, 128)):
+        for causal, window in ((True, 0), (False, 0), (True, 96)):
+            cases.append((BH, S, 1, 1, D, causal, window))
+    cases += [(2, 100, 4, 4, 64, True, 0), (2, 100, 2, 2, 128, False, 30),
+              (1, 1000, 2, 2, 128, True, 96), (2, 1000, 2, 1, 64, False, 0),
+              (2, 256, 8, 2, 64, True, 0), (2, 77, 28, 4, 128, True, 40),
+              (1, 300, 4, 1, 16, False, 0), (2, 129, 4, 2, 32, True, 50)]
+    big = (LM_BATCH, LM_PROMPT, 28, 4, 128, True, 0)
+    # absolute bars as tests/test_kernels.py; relative to each output row's
+    # largest value, f32 1e-4 (summation order) and bf16 1e-2 (a one-ulp
+    # disagreement of the two bf16 roundings is at most 2^-7 = 0.0078)
+    max_err, max_rel, n = 0.0, 0.0, 0
+    for dtype, tol, rel_tol in ((torch.float32, 2e-5, 1e-4),
+                                (torch.bfloat16, 2e-2, 1e-2)):
+        for i, (B, S, H, hkv, D, causal, window) in enumerate(
+                cases + ([big] if dtype == torch.bfloat16 else [])):
+            q, k, v = flash_case(B, S, H, hkv, D, dtype, seed=i, dev=dev)
+            got = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            rel = row_rel_err(got, want)
+            max_err, max_rel = max(max_err, err), max(max_rel, rel)
+            n += 1
+            check(err <= tol and rel <= rel_tol, f"flash_attention kernel vs "
+                  f"plain: abs {err} (bar {tol}), row-relative {rel} (bar "
+                  f"{rel_tol}) at {dtype} (B, S, H, Hkv, D, causal, window)="
+                  f"{(B, S, H, hkv, D, causal, window)}")
+            del q, k, v, got, want
+    log(f"[flash] flash_attention within f32 2e-5 / bf16 2e-2 of plain, and "
+        f"within f32 1e-4 / bf16 1e-2 of each output row's largest value, on "
+        f"{n} cases: the 18 of tests/test_kernels.py, ragged S (100, 77, "
+        f"129, 300, 1000), GQA (28/4, 8/2, 4/1, 2/1) and the Qwen2-7B "
+        f"prefill {big}; max_abs_err={max_err:.3g}, row-relative "
+        f"{max_rel:.3g}")
+    B, S, H, hkv, D, causal, window = big
+    q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=99, dev=dev)
+    qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flop, n_bytes = flash_work(B, S, H, hkv, D, 2, causal, window)
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    kernel = lambda: flash_kernel.flash_attention(q, k, v)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v)  # noqa: E731
+    library = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                           enable_gqa=True)
+    k_call = time_ms(kernel, reps=3, samples=5)
+    res = {"ms": graph_ms(kernel, reps=3, samples=7),
+           "plain_ms": graph_ms(plain, reps=1, samples=5),
+           "library_ms": graph_ms(library, reps=3, samples=7),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "max_abs_err": max_err}
+    log(f"[flash] Qwen2-7B prefill B={B} S={S} H={H} Hkv={hkv} D={D} bf16 "
+        f"causal ({flop:.3e} FLOP, {n_bytes} bytes): device time (CUDA-graph "
+        f"replay) kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"SDPA {res['library_ms']:.4f} ms; per eager call kernel "
+        f"{k_call:.4f} ms; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}; FLOP {t_ops:.4f} ms at 989 TFLOP/s, bytes "
+        f"{t_bytes:.4f} ms at 3.35 TB/s); kernel at "
+        f"{flop / res['ms'] * 1e-9:.1f} TFLOP/s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: LM serving at full width
+
+def ulp_excess(got, want):
+    """How far ``got`` strays beyond one bf16 ulp of ``want`` (2^-7 of its
+    magnitude), elementwise max."""
+    want = want.float()
+    return float(((got.float() - want).abs() - want.abs() * 2 ** -7).max())
+
+
+def phase_lm(dev):
+    cfg = configs.get(LM_ARCH)
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} greedy tokens; random weights from seed 0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_kernel.COUNTER.launches = 0
+    res = serve.run(LM_ARCH, reduced=False, prompt_len=LM_PROMPT, gen=LM_GEN,
+                    batch=LM_BATCH, seed=0, device=dev)
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches == cfg.n_layers, f"flash_attention launched {launches} "
+          f"times in one prefill, expected {cfg.n_layers} (one per layer)")
+    v = cfg.vocab_size
+    check(res.tokens.shape == (LM_BATCH, LM_GEN)
+          and 0 <= res.tokens.min() and res.tokens.max() < v,
+          f"lm: generated tokens {res.tokens.shape} out of range")
+    for name, lg in (("prefill", res.prefill_logits), ("decode", res.logits)):
+        check(lg.shape == (LM_BATCH, 1, res.model.plan.padded_vocab(v))
+              and bool(torch.isfinite(lg[..., :v]).all()),
+              f"lm: {name} logits not finite or of the wrong shape")
+    weights = sum(p.numel() * p.element_size()
+                  for p in res.model.parameters())
+    caches = 2 * cfg.n_layers * LM_BATCH * (LM_PROMPT + LM_GEN + 8) * \
+        cfg.n_kv_heads * cfg.hd * 2
+    t = res.timings
+    log(f"[lm] launches flash_attention={launches} (one per layer); prefill "
+        f"{t['prefill_s'] * 1e3:.1f} ms (first, cold); decode "
+        f"{t['ms_per_step']:.3f} ms/step over {LM_GEN} steps "
+        f"({t['tok_s']:.1f} tokens/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f} GiB, KV "
+        f"cache {caches / 2**30:.2f} GiB)")
+
+    model, batch = res.model, {"tokens": res.prompt}
+    real_mha = attention.mha
+
+    def prefill(mha=None):
+        """A fresh prefill of the same prompts, with ``mha`` at the call
+        site if given; the real-vocab logits and the wall time."""
+        caches = model.init_decode(LM_BATCH, LM_PROMPT + LM_GEN + 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(attention, **({"mha": mha} if mha else {})):
+            _, logits = model.prefill(batch, caches)
+        torch.cuda.synchronize()
+        return logits[:, 0, :v], time.perf_counter() - t0
+
+    # warm prefill with the kernel, timed; it equals serve.run's prefill
+    kern, t_kern = prefill()
+    check(torch.equal(kern, res.prefill_logits[:, 0, :v]),
+          "lm: two kernel prefills differ")
+    # The prefill rerun with the plain version patched in at the call site.
+    # Its bound: at every layer the kernel, run on that layer's own inputs,
+    # stays within phase 7's 2e-2 plus one bf16 ulp of the plain output
+    # (2^-7 of it), since these outputs reach ~100 (v has std ~30 under the
+    # reference's init), where one ulp is 0.5.  The logits are printed, not
+    # bounded: the init (std 1/sqrt(fan_in), fan_in = shape[-2], i.e. 28 q
+    # heads and 4 KV heads) gives scores of std ~300, so a one-ulp change in
+    # the residual stream flips attention patterns in the layers above.
+    layer_err, layer_excess = [], []
+
+    def checked(q, k, v, *, causal=True, window=0):
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        got = real_mha(q, k, v, causal=causal, window=window)
+        layer_err.append(float((got.float() - want.float()).abs().max()))
+        layer_excess.append(ulp_excess(got, want))
+        return want
+
+    plain, t_plain = prefill(checked)
+    check(len(layer_err) == cfg.n_layers and bool(torch.isfinite(plain).all())
+          and max(layer_excess) <= 2e-2, f"lm: kernel vs plain on the "
+          f"layers' own inputs beyond one bf16 ulp: {layer_excess} (max abs "
+          f"{layer_err})")
+    diff = float((kern - plain).abs().max())
+    rms = float(plain.pow(2).mean().sqrt())
+    log(f"[lm] prefill rerun with the plain version patched in: each layer's "
+        f"kernel output vs plain on its own inputs max abs "
+        f"{max(layer_err):.4g}, beyond one bf16 ulp {max(layer_excess):.4g} "
+        f"over {len(layer_err)} layers (held to 2e-2); max logit difference "
+        f"{diff:.4g} (logit RMS {rms:.4g}; not bounded); warm prefill kernel "
+        f"{t_kern * 1e3:.1f} ms, plain with the kernel beside it "
+        f"{t_plain * 1e3:.1f} ms")
+
+    # where a decode step's time goes: 4 steps from the prefilled caches
+    caches, _ = model.prefill(batch, model.init_decode(
+        LM_BATCH, LM_PROMPT + LM_GEN + 8))
+    tok = torch.from_numpy(res.tokens[:, :1]).to(dev)
+
+    def replay():
+        c = caches
+        for i in range(4):
+            c, _ = model.decode_step(c, tok, LM_PROMPT + i)
+        torch.cuda.synchronize()
+
+    profile_replay(f"{LM_ARCH} decode B={LM_BATCH}", replay, 4)
+    del caches
+    del res, model, kern, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -736,6 +980,8 @@ def main():
     launches = phase_main(dev)
     figkv_launches = phase_figkv(dev)
     phase_profile(dev)
+    flash = phase_flash(dev)
+    lm_launches = phase_lm(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     rows = [{
@@ -756,6 +1002,14 @@ def main():
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"]})
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",
+        "launches": lm_launches, "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -3,14 +3,15 @@
 A simulator has no weights; what a replay carries is its config's numeric
 knobs (``MechParams``) and its scan state (``SimState``).  FIGCache-KV
 carries its ``FigKVState`` and an embedding cache its ``EmbedCache``.
-These helpers take them as numpy arrays — the JAX package's leaves after
-``np.asarray`` — so a run started in one package can finish in the other.
-Nothing here imports the JAX package.
+A model carries its parameters and its KV caches.  These helpers take
+them as numpy arrays — the JAX package's leaves after ``np.asarray`` — so
+a run started in one package can finish in the other.  Nothing here
+imports the JAX package.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,8 @@ from repro_torch.core import fts as fts_lib
 from repro_torch.core.timing import MechParams
 from repro_torch.device import resolve_device
 from repro_torch.figkv import EmbedCache, FigKVState
+from repro_torch.models import transformer
+from repro_torch.models.attention import KVCache
 
 # unbatched rank and dtype of every SimState leaf, in the JAX package's
 # tree-leaves order (NamedTuple fields depth first)
@@ -136,3 +139,67 @@ def embed_cache_from_numpy(leaves: Sequence, device=None) -> EmbedCache:
     return EmbedCache(fast=t[0], fts=fts_lib.FTS(*[x[None] for x in
                                                     t[1:1 + n_fts]]),
                       hits=t[-2], lookups=t[-1])
+
+
+def _layers(cfg, groups) -> Iterator[Tuple[object, object]]:
+    """(group entry, index or None) of every layer, in layer order, over
+    the JAX package's scan groups: a group of ``count`` > 1 identical
+    blocks stacks its leaves on a leading axis, a group of one does not."""
+    layout = transformer.group_layout(cfg)
+    if len(groups) != len(layout):
+        raise ValueError(f"expected {len(layout)} layer groups, got "
+                         f"{len(groups)}")
+    for (count, block), group in zip(layout, groups):
+        for i in range(count):
+            for j in range(len(block)):
+                yield group[j], (i if count > 1 else None)
+
+
+def _flat(tree, prefix: str) -> Iterator[Tuple[str, object]]:
+    if isinstance(tree, Mapping):
+        for name, x in tree.items():
+            yield from _flat(x, f"{prefix}{name}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def model_params_from_numpy(cfg, tree: Mapping, device=None
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Model`` params as numpy arrays (``jax.tree.map(
+    np.asarray, params)``: nested dicts and lists, scan groups stacked on a
+    leading layer axis) -> the state of the port's ``Model`` for ``cfg``
+    (``model.load_state_dict(...)``), one entry per layer."""
+    dev = resolve_device(device)
+    transformer.check_ported(cfg)
+    out = {"tok_embed": _tensor(tree["tok_embed"], dev),
+           "stack.ln_f": _tensor(tree["stack"]["ln_f"], dev)}
+    if "lm_head" in tree:
+        out["lm_head"] = _tensor(tree["lm_head"], dev)
+    for n, (layer, i) in enumerate(_layers(cfg, tree["stack"]["groups"])):
+        for path, x in _flat(layer, ""):
+            a = np.asarray(x)
+            out[f"stack.layers.{n}.{path}"] = _tensor(
+                a if i is None else a[i], dev)
+    return out
+
+
+def kv_caches_from_numpy(cfg, tree: Sequence, device=None) -> List[KVCache]:
+    """The JAX package's decode caches as numpy arrays (``jax.tree.map(
+    np.asarray, caches)``: one list per scan group of KVCache tuples
+    ``(k, v, k_scale, v_scale, length)``) -> the port's per-layer caches,
+    so a JAX prefill can continue in the port's decode."""
+    dev = resolve_device(device)
+    transformer.check_ported(cfg)
+    caches = []
+    for c, i in _layers(cfg, tree):
+        k, v, k_scale, _, length = c
+        if k_scale is not None:
+            raise NotImplementedError("the int8 KV cache is not ported yet")
+
+        def sel(a):
+            a = np.asarray(a)
+            return a if i is None else a[i]
+        caches.append(KVCache(k=_tensor(sel(k), dev), v=_tensor(sel(v), dev),
+                              k_scale=None, v_scale=None,
+                              length=int(sel(length))))
+    return caches

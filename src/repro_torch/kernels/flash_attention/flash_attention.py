@@ -1,0 +1,91 @@
+"""Wrapper of the Hopper ``flash_attention`` kernel
+(``csrc/flash_attention.cu``).
+
+Replaces the Pallas TPU kernel
+``repro/kernels/flash_attention/flash_attention.py`` (``flash_attention``).
+One launch computes a whole prefill attention in the model's layout:
+q (B, S, H, D) over k/v (B, S, Hkv, D), query head ``h`` reading KV head
+``h // (H // Hkv)``.  bf16 runs on the tensor cores, f32 on the CUDA
+cores.
+
+The library is built and loaded at the first launch, never at import, so
+this module imports on machines without CUDA or ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+KERNEL = "flash_attention"
+HEAD_DIMS = (16, 32, 64, 128)     # the D the CUDA source instantiates
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _Counter:
+    """Launches of the kernel in this process (one per successful launch)."""
+    launches = 0
+
+
+COUNTER = _Counter()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel: q (B, S, H, D), k/v (B, S, Hkv, D) with
+    ``H % Hkv == 0``, all contiguous and 16-byte aligned on one CUDA device,
+    of one dtype (f32 or bf16), D in ``HEAD_DIMS`` -> (B, S, H, D) in that
+    dtype (contract of ``ref.flash_attention_ref``).
+
+    Runs on the current stream without synchronising; raises if the launch
+    is refused."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be (B, S, H, D) and k/v "
+                         f"(B, S, Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or hkv == 0 \
+            or h % hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not supported; the "
+                         f"kernel takes D in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must share one dtype, f32 "
+                         f"or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention launches the CUDA kernel and needs "
+                         f"CUDA tensors; got {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or not x.is_contiguous() or \
+                x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and "
+                             f"16-byte aligned on {q.device}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+        hkv, d, int(bool(causal)), int(window), d ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    COUNTER.launches += 1
+    return out

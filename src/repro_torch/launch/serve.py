@@ -1,21 +1,31 @@
-"""Serving driver of the PyTorch port: the FIGCache-KV segment cache on one
-synthetic attention layer (counterpart of ``repro.launch.serve.demo_figkv``).
+"""Serving entry point of the PyTorch port: batched prefill + greedy decode of
+a whole model, with optional FIGCache-KV (counterpart of
+``repro.launch.serve``).
 
-The LM serving loop of the JAX package (``run`` / ``main``: prefill and
-decode of a whole model) needs the model stack, which is not ported yet
-(ROADMAP.md, Queue 1 item 14); it comes with it.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+        --reduced --prompt-len 64 --gen 32 --batch 4 [--figkv]
+
+The standard path uses the exact KV cache; every layer's prefill attention
+runs the flash-attention kernel on the card.  ``--figkv`` also exercises
+the paper's segment cache on one synthetic layer (``demo_figkv``).  As in
+the JAX package, ``--reduced`` is on by default and the command line
+cannot turn it off; ``run(arch, reduced=False)`` serves the full width.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.figkv import (FigKVState, figkv_decode_step, figkv_init,
                                figkv_prefill)
+from repro_torch.models import Model, build_model
 
 
 class FigKVRun(NamedTuple):
@@ -28,6 +38,65 @@ class FigKVRun(NamedTuple):
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+class ServeRun(NamedTuple):
+    tokens: np.ndarray          # (batch, gen) greedy tokens
+    prompt: torch.Tensor        # (batch, prompt_len) the random prompt
+    prefill_logits: torch.Tensor  # (batch, 1, Vp) f32, last prompt position
+    logits: torch.Tensor        # (batch, 1, Vp) f32, the last decode step
+    timings: Dict[str, float]   # prefill_s, decode_s, ms_per_step, tok_s
+    model: Model
+
+
+def run(arch: str, *, reduced: bool = True, prompt_len: int = 64,
+        gen: int = 32, batch: int = 4, figkv: bool = False, seed: int = 0,
+        device=None) -> ServeRun:
+    """Build ``arch`` (its reduced config unless ``reduced=False``) with
+    random weights from ``seed``, prefill ``batch`` random prompts of
+    ``prompt_len`` tokens into an exact KV cache of ``prompt_len + gen +
+    8`` slots, then decode ``gen`` tokens greedily at positions
+    ``prompt_len + i``.  Weights and prompts come from one generator on
+    the device."""
+    dev = resolve_device(device)
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    model = build_model(cfg, device=dev)
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    model.init_params(rng)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=rng, device=dev)
+    caches = model.init_decode(batch, prompt_len + gen + 8)
+    _sync(dev)
+    t0 = time.perf_counter()
+    caches, logits = model.prefill({"tokens": prompt}, caches)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
+
+    out_tokens = []
+    t0 = time.perf_counter()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for i in range(gen):
+        out_tokens.append(tok)
+        caches, logits = model.decode_step(caches, tok, prompt_len + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    toks_out = torch.cat(out_tokens, 1).cpu().numpy() if gen else \
+        np.zeros((batch, 0), np.int64)
+    tok_s = batch * gen / t_decode if t_decode > 0 else 0.0
+    print(f"[serve] {arch}: prefill {prompt_len} toks in "
+          f"{t_prefill * 1e3:.1f}ms; decoded {gen} x {batch} in "
+          f"{t_decode * 1e3:.1f}ms ({tok_s:.1f} tok/s)", flush=True)
+    if figkv and not cfg.attn_free and cfg.figkv is not None:
+        demo_figkv(cfg, torch.Generator(device=dev).manual_seed(seed),
+                   prompt_len, gen, batch, device=dev)
+    return ServeRun(tokens=toks_out, prompt=prompt,
+                    prefill_logits=prefill_logits, logits=logits,
+                    timings={"prefill_s": t_prefill, "decode_s": t_decode,
+                             "ms_per_step": t_decode / max(gen, 1) * 1e3,
+                             "tok_s": tok_s},
+                    model=model)
 
 
 def demo_figkv(cfg: ModelConfig, generator: torch.Generator,
@@ -74,3 +143,20 @@ def demo_figkv(cfg: ModelConfig, generator: torch.Generator,
                     timings={"prefill_s": t_prefill, "decode_s": t_decode,
                              "ms_per_step": t_decode / max(gen, 1) * 1e3},
                     warm=warm)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--figkv", action="store_true")
+    args = ap.parse_args()
+    run(args.arch, reduced=args.reduced, prompt_len=args.prompt_len,
+        gen=args.gen, batch=args.batch, figkv=args.figkv)
+
+
+if __name__ == "__main__":
+    main()

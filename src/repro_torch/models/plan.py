@@ -1,0 +1,41 @@
+"""Serving plan: how a model is laid out, separate from its architecture.
+
+The port's counterpart of ``repro.models.plan`` with the fields a
+one-device server reads: head and vocab padding (exact functions: padded
+q heads are masked to zero, padded vocab slots to -1e30), the int8 KV
+cache (not ported yet: ``kv_quant`` raises in the attention layer) and the
+serving toggles.  There is no mesh, so no sharding hints.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    tp: int = 1                  # model-axis size (head / ffn padding only)
+    vocab_pad: int = 256
+    kv_quant: bool = False       # int8 KV cache (not ported: raises)
+    opt_gqa_pack: bool = True     # decode: fold GQA groups into the query
+                                  # axis instead of materialising repeated KV
+
+    def padded_heads(self, n_heads: int) -> int:
+        """Zero-pad q heads to a TP multiple (exact function)."""
+        return _ceil_to(n_heads, self.tp)
+
+    def padded_kv_heads(self, n_kv: int) -> int:
+        """Replicate kv heads up to the TP degree (GQA-TP)."""
+        return max(n_kv, self.tp) if self.tp > 1 else n_kv
+
+    def padded_vocab(self, v: int) -> int:
+        return _ceil_to(v, max(self.vocab_pad, self.tp))
+
+    def padded_ffn(self, f: int) -> int:
+        return _ceil_to(f, self.tp)
+
+
+DEFAULT_PLAN = Plan()

@@ -1,0 +1,120 @@
+"""Decoder stack: layer layouts, parameter specs, caches and the forward.
+
+The port's counterpart of ``repro.models.transformer`` for stacks of
+attention + dense-FFN layers.  The JAX package groups identical layers and
+scans over each group's stacked parameters; the port keeps one entry per
+layer (``stack.layers[i]``, an ``nn.ModuleList``) and loops over them, so
+parameters are allocated and initialised layer by layer.  ``group_layout``
+stays: it is how the JAX package's stacked trees are read
+(``convert.model_params_from_numpy``).  Other mixers and FFNs (MLA, Mamba,
+RWKV, MoE) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models import attention
+from repro_torch.models.layers import (rms_norm, rms_norm_spec, swiglu,
+                                       swiglu_spec)
+from repro_torch.models.plan import Plan
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDef:
+    mixer: str           # attn | mla | mamba | rwkv
+    ffn: Optional[str]   # dense | moe | None (rwkv: built-in channel mix)
+
+
+PORTED = LayerDef("attn", "dense")
+
+
+def layer_def(cfg: ModelConfig, i: int) -> LayerDef:
+    if cfg.rwkv:
+        return LayerDef("rwkv", None)
+    if cfg.attn_layer_period:
+        mixer = "attn" if i % cfg.attn_layer_period == cfg.attn_layer_offset \
+            else "mamba"
+    else:
+        mixer = "mla" if cfg.mla is not None else "attn"
+    ffn = "dense"
+    if cfg.moe is not None and i >= cfg.moe.first_dense and \
+            i % cfg.moe.layer_period == cfg.moe.layer_offset:
+        ffn = "moe"
+    return LayerDef(mixer, ffn)
+
+
+def group_layout(cfg: ModelConfig) -> List[Tuple[int, List[LayerDef]]]:
+    """[(repeat_count, block_defs)]: the JAX package's scan groups
+    (consecutive identical blocks merge)."""
+    defs = [layer_def(cfg, i) for i in range(cfg.n_layers)]
+    if cfg.attn_layer_period:
+        period = cfg.attn_layer_period if cfg.moe is None else math.lcm(
+            cfg.attn_layer_period, cfg.moe.layer_period)
+        assert cfg.n_layers % period == 0
+        return [(cfg.n_layers // period, defs[:period])]
+    groups: List[Tuple[int, List[LayerDef]]] = []
+    for d in defs:
+        if groups and groups[-1][1] == [d]:
+            groups[-1] = (groups[-1][0] + 1, [d])
+        else:
+            groups.append((1, [d]))
+    return groups
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
+    attention + dense FFN with full (not sliding-window ring) caches."""
+    other = sorted({f"{d.mixer}+{d.ffn}" for d in
+                    (layer_def(cfg, i) for i in range(cfg.n_layers))
+                    if d != PORTED})
+    if other or cfg.is_encdec or cfg.m_rope:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family}) needs modules the port does "
+            f"not have yet ({', '.join(other) or 'encoder / M-RoPE'}); the "
+            "port serves attention + dense-FFN stacks (ROADMAP.md Queue 1)")
+
+
+def _layer_spec(cfg: ModelConfig, plan: Plan):
+    return {"ln_mix": rms_norm_spec(cfg.d_model),
+            "attn": attention.gqa_spec(cfg, plan),
+            "ln_ffn": rms_norm_spec(cfg.d_model),
+            "ffn": swiglu_spec(cfg.d_model, plan.padded_ffn(cfg.d_ff))}
+
+
+def stack_spec(cfg: ModelConfig, plan: Plan):
+    check_ported(cfg)
+    return {"layers": [_layer_spec(cfg, plan) for _ in range(cfg.n_layers)],
+            "ln_f": rms_norm_spec(cfg.d_model)}
+
+
+def init_caches(cfg: ModelConfig, plan: Plan, batch: int, s_max: int,
+                device=None) -> List[attention.KVCache]:
+    """One KV cache per layer."""
+    hkv = plan.padded_kv_heads(cfg.n_kv_heads)
+    s_alloc = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
+    return [attention.init_kv_cache(batch, s_alloc, hkv, cfg.hd,
+                                    plan.kv_quant, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
+                  angles=None, caches=None, decode: bool = False):
+    """x (B, S, D) -> (normed (B, S, D), new caches or None)."""
+    hmask = attention.head_mask(cfg, plan, device=x.device)
+    new_caches = [] if caches is not None else None
+    for i, p in enumerate(stack["layers"]):
+        h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
+        y, nc = attention.gqa_forward(
+            p["attn"], h, cfg, plan, angles=angles,
+            cache=None if caches is None else caches[i], decode=decode,
+            hmask=hmask)
+        x = x + y
+        x = x + swiglu(p["ffn"], rms_norm(x, p["ln_ffn"], cfg.norm_eps))
+        if new_caches is not None:
+            new_caches.append(nc)
+    return rms_norm(x, stack["ln_f"], cfg.norm_eps), new_caches

@@ -1,0 +1,378 @@
+"""The port's dense LM stack (``repro_torch.models``, ``launch/serve.run``,
+``convert``) against the JAX package's ``repro.models``.
+
+Parameters made by the JAX package go to the port through
+``convert.model_params_from_numpy``; the same numpy tokens go through
+both, teacher-forced.  The JAX model runs eagerly (``jax.disable_jit()``):
+under ``jit``, XLA lets its fusions keep bf16 intermediates in f32 (excess
+precision), which moves the reduced Qwen2-7B's logits by up to 0.10 from
+the step-by-step casts that both the eager JAX model and the port perform.
+Eager, the port's prefill and decode logits equal the JAX model's bit for
+bit on the CPU they were measured on; they are held to the 2e-2 absolute
+of the acceptance bar, so that a one-ulp difference of a bf16 matmul on
+another CPU does not fail them.  At head_dim 16 (the reduced configs) the
+prefill's scale on the f32 product and the decode's scale of q in bf16
+agree exactly (0.25 is a power of two)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jconfigs
+from repro.models import Plan as JPlan
+from repro.models import build_model as jbuild
+from repro.models import layers as jlayers
+from repro_torch import configs as tconfigs
+from repro_torch import convert
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+from repro_torch.launch import serve
+from repro_torch.models import Plan, build_model
+from repro_torch.models import layers as tlayers
+from repro_torch.models.model import model_spec
+from repro_torch.models.param import param_count
+
+PORTED = ["qwen2-7b", "qwen1.5-0.5b", "stablelm-12b", "deepseek-67b"]
+NOT_PORTED = ["mixtral-8x22b", "deepseek-v2-lite", "jamba-v0.1-52b",
+              "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"]
+B, S, S0 = 2, 24, 20
+
+
+def _bf(x):
+    """numpy -> the bf16 values as a JAX array and a torch tensor."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _tokens(cfg, seed=2):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _pair(arch, seed=1, **plan):
+    """The JAX model with its params and the port's model holding them;
+    ``plan`` sets the same Plan fields in both packages."""
+    jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
+    jm = jbuild(jcfg, JPlan(moe_capacity=0, **plan))
+    params = jm.init_params(jax.random.PRNGKey(seed))
+    tm = build_model(tcfg, Plan(**plan), device="cpu")
+    tm.load_state_dict(convert.model_params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu"))
+    return jm, params, tm
+
+
+# ---------------- layers ----------------
+
+def test_layer_functions_match_jax_bitwise():
+    """rms_norm (f32 statistics, bf16 round, times the weight),
+    rope_angles (f32 theta ** (-i / half), at Qwen2-7B's head_dim 128 and
+    positions past 4096 too), apply_rope (f32, rounded), swiglu (silu in
+    f32, cast, gate): bitwise."""
+    rng = np.random.default_rng(0)
+    jx, tx = _bf(rng.normal(size=(2, 24, 64)))
+    jw, tw = _bf(rng.normal(size=64))
+    np.testing.assert_array_equal(_np(jlayers.rms_norm(jx, jw, 1e-6)),
+                                  _np(tlayers.rms_norm(tx, tw, 1e-6)))
+    pos = np.broadcast_to(np.arange(4090, 4114), (2, 24)).copy()
+    ja = jlayers.rope_angles(jnp.asarray(pos), 128, 1e6)
+    ta = tlayers.rope_angles(torch.from_numpy(pos), 128, 1e6)
+    np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+    ja = jlayers.rope_angles(jnp.asarray(pos[:, :24]), 16, 1e6)
+    ta = tlayers.rope_angles(torch.from_numpy(pos[:, :24]), 16, 1e6)
+    jq, tq = _bf(rng.normal(size=(2, 24, 7, 16)))
+    np.testing.assert_array_equal(_np(jlayers.apply_rope(jq, ja)),
+                                  _np(tlayers.apply_rope(tq, ta)))
+    jwi, twi = _bf(rng.normal(size=(64, 352)) * 0.1)
+    jwo, two = _bf(rng.normal(size=(176, 64)) * 0.1)
+    np.testing.assert_array_equal(
+        _np(jlayers.swiglu({"wi": jwi, "wo": jwo}, jx)),
+        _np(tlayers.swiglu({"wi": twi, "wo": two}, tx)))
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_logits_match_jax(tied):
+    """bf16 matmul, then f32, padded vocab slots at -1e30.  The matmul's
+    f32 accumulation order differs between XLA and torch, so a logit may
+    round to the neighbouring bf16 value: held to one bf16 ulp (2^-8
+    relative), and 1e-6 absolute for the few that cancel to near zero
+    (one of 3000 here: 1.2e-7 apart)."""
+    rng = np.random.default_rng(1)
+    jx, tx = _bf(rng.normal(size=(2, 3, 64)))
+    shape = (512, 64) if tied else (64, 512)
+    jw, tw = _bf(rng.normal(size=shape) * 0.125)
+    want = _np(jlayers.lm_logits(jx, jw, 500, transpose=tied))
+    got = tlayers.lm_logits(tx, tw, 500, transpose=tied)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 512)
+    np.testing.assert_array_equal(got[..., 500:].numpy(), want[..., 500:])
+    np.testing.assert_allclose(got[..., :500].numpy(), want[..., :500],
+                               rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,kv_len", [
+    (True, 0, 0, None), (False, 0, 37, 38), (True, 9, 0, None),
+    (False, 0, 60, 61)])
+def test_attend_matches_jax(causal, window, q_offset, kv_len):
+    """The plain chunked online softmax of decode (q scaled in bf16, f32
+    scores, -1e30 masks, 16-key chunks with a ragged last one) against the
+    JAX ``attend`` run eagerly."""
+    from repro.models.attention import attend as jattend
+    from repro_torch.models.attention import attend as tattend
+    rng = np.random.default_rng(3)
+    sq = 1 if kv_len else 40
+    jq, tq = _bf(rng.normal(size=(2, sq, 3, 16)))
+    jk, tk = _bf(rng.normal(size=(2, 61, 3, 16)))
+    jv, tv = _bf(rng.normal(size=(2, 61, 3, 16)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len, chunk=16)
+    if not kv_len:
+        jk, tk, jv, tv = jk[:, :40], tk[:, :40], jv[:, :40], tv[:, :40]
+    with jax.disable_jit():
+        want = _np(jattend(jq, jk, jv, **kw))
+    np.testing.assert_allclose(_np(tattend(tq, tk, tv, **kw)), want,
+                               atol=2e-2, rtol=0)
+
+
+# ---------------- parameters ----------------
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_count_matches_config(arch):
+    """The spec tree counts the config's parameters plus the vocab
+    padding (256-multiple), at full width (counted, not allocated) and
+    reduced."""
+    for cfg in (tconfigs.get(arch), tconfigs.get_reduced(arch)):
+        plan = Plan()
+        pad = (plan.padded_vocab(cfg.vocab_size) - cfg.vocab_size) * \
+            cfg.d_model * (1 if cfg.tie_embeddings else 2)
+        assert param_count(model_spec(cfg, plan)) == cfg.n_params() + pad
+    assert param_count(model_spec(tconfigs.get("qwen2-7b"), Plan())) == \
+        7_615_616_512
+
+
+def test_state_names_and_shapes_match_the_jax_tree():
+    """Every JAX leaf lands on one port parameter of its shape and dtype,
+    one per layer (the 2-layer group is unstacked)."""
+    _, params, tm = _pair("qwen2-7b")
+    state = convert.model_params_from_numpy(
+        tconfigs.get_reduced("qwen2-7b"), jax.tree.map(np.asarray, params),
+        device="cpu")
+    own = tm.state_dict()
+    assert sorted(state) == sorted(own)
+    assert "stack.layers.1.attn.bq" in own and "lm_head" in own
+    for name, x in state.items():
+        assert x.shape == own[name].shape and x.dtype == own[name].dtype
+    assert len(state) == len(jax.tree.leaves(params)) + 11   # 11 a layer
+
+
+def test_init_params_follow_the_spec():
+    """zeros / ones exactly; normal draws with std scale / sqrt(fan_in)
+    (fan_in = shape[-2]), embeddings 0.02, all bf16, reproducible."""
+    cfg = tconfigs.get_reduced("qwen2-7b")
+    m = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    p = m.stack.layers[0]
+    assert torch.equal(p.ln_mix, torch.ones(64, dtype=torch.bfloat16))
+    assert not p.attn.bq.any() and p.attn.wq.dtype == torch.bfloat16
+    for w, std in ((p.attn.wq, 7 ** -0.5), (p.ffn.wi, 64 ** -0.5),
+                   (p.attn.wo, 16 ** -0.5), (m.tok_embed, 0.02)):
+        assert abs(float(w.float().std()) / std - 1) < 0.1
+    again = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    for (name, a), b in zip(m.state_dict().items(),
+                            again.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="not"):
+        build_model(tconfigs.get_reduced(arch), device="cpu")
+
+
+def test_int8_kv_cache_raises():
+    m = build_model(tconfigs.get_reduced("qwen2-7b"), Plan(kv_quant=True),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        m.init_decode(1, 8)
+
+
+# ---------------- model ----------------
+
+def _prefill_and_decode(jm, params, tm, toks):
+    """prefill of 20 tokens + 4 teacher-forced decode steps through both
+    packages: the (JAX, port) logits of each step and the port's caches."""
+    with jax.disable_jit():
+        jc = jm.init_decode(B, 64)
+        jc, jl = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :S0])},
+                            jc)
+        tc = tm.init_decode(B, 64)
+        tc, tl = tm.prefill({"tokens": torch.from_numpy(toks[:, :S0])}, tc)
+        pairs = [(jl, tl)]
+        for i in range(4):
+            tok = toks[:, S0 + i:S0 + i + 1]
+            jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
+            tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
+            pairs.append((jl, tl))
+    return pairs, tc
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"])
+def test_prefill_and_decode_match_jax(arch):
+    """prefill of 20 tokens + 4 teacher-forced decode steps; qwen1.5-0.5b
+    has tied embeddings (the head is the table, transposed)."""
+    jm, params, tm = _pair(arch)
+    toks = _tokens(tm.cfg)
+    v = tm.cfg.vocab_size
+    pairs, tc = _prefill_and_decode(jm, params, tm, toks)
+    for step, (a, b) in enumerate(pairs):
+        assert b.shape == (B, 1, 512) and b.dtype == torch.float32
+        np.testing.assert_allclose(_np(b)[..., :v], _np(a)[..., :v],
+                                   atol=2e-2, rtol=0, err_msg=f"step {step}")
+    assert tc[0].length == S0 + 4
+
+
+def test_unpacked_gqa_decode_matches_jax():
+    """Plan(opt_gqa_pack=False): decode repeats the KV heads instead of
+    folding each query group into the query axis, in both packages; the
+    logits agree with the JAX model's and with the packed decode's."""
+    jm, params, tm = _pair("qwen2-7b", opt_gqa_pack=False)
+    assert tm.cfg.n_heads > tm.cfg.n_kv_heads      # the GQA case
+    toks = _tokens(tm.cfg)
+    v = tm.cfg.vocab_size
+    pairs, _ = _prefill_and_decode(jm, params, tm, toks)
+    packed = build_model(tm.cfg, device="cpu")
+    packed.load_state_dict(tm.state_dict())
+    tc = packed.init_decode(B, 64)
+    tc, _ = packed.prefill({"tokens": torch.from_numpy(toks[:, :S0])}, tc)
+    for step, (a, b) in enumerate(pairs):
+        np.testing.assert_allclose(_np(b)[..., :v], _np(a)[..., :v],
+                                   atol=2e-2, rtol=0, err_msg=f"step {step}")
+        if step:
+            tok = torch.from_numpy(toks[:, S0 + step - 1:S0 + step])
+            tc, want = packed.decode_step(tc, tok, S0 + step - 1)
+            np.testing.assert_allclose(_np(b), _np(want), atol=1e-3, rtol=0,
+                                       err_msg=f"step {step}")
+
+
+def test_padded_heads_match_jax():
+    """Plan(tp=2): 7 query heads padded to 8 (the pad masked to zero), the
+    KV head replicated to 2, as the JAX package lays a model out for
+    2-way tensor parallelism; the forward logits agree."""
+    jcfg, tcfg = jconfigs.get_reduced("qwen2-7b"), \
+        tconfigs.get_reduced("qwen2-7b")
+    jm = jbuild(jcfg, JPlan(tp=2))
+    params = jm.init_params(jax.random.PRNGKey(6))
+    tm = build_model(tcfg, Plan(tp=2), device="cpu")
+    tm.load_state_dict(convert.model_params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu"))
+    assert tm.stack.layers[0].attn.wq.shape == (64, 8, 16)
+    assert tm.stack.layers[0].attn.wk.shape == (64, 2, 16)
+    toks = _tokens(tcfg)
+    with jax.disable_jit():
+        want = _np(jm.forward(params, {"tokens": jnp.asarray(toks)}))
+    got = tm.forward({"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(got), want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"])
+def test_decode_matches_forward(arch):
+    """prefill + decode_step logits == the full forward's (exact cache),
+    as tests/test_models.py:49-76 holds the JAX package."""
+    cfg = tconfigs.get_reduced(arch)
+    m = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(_tokens(cfg))
+    full = m.forward({"tokens": toks})
+    caches = m.init_decode(B, 64)
+    caches, lg = m.prefill({"tokens": toks[:, :S0]}, caches)
+    errs = [float((lg[:, 0] - full[:, S0 - 1]).abs().max())]
+    for i in range(4):
+        caches, lg = m.decode_step(caches, toks[:, S0 + i:S0 + i + 1],
+                                   S0 + i)
+        errs.append(float((lg[:, 0] - full[:, S0 + i]).abs().max()))
+    assert max(errs) < 1e-3, errs
+
+
+def test_jax_prefill_continues_in_port_decode():
+    """A jitted JAX prefill's caches go to the port (``kv_caches_from_numpy``)
+    and the port decodes on: the same logits as the JAX decode from the
+    same caches."""
+    jm, params, tm = _pair("qwen2-7b", seed=3)
+    toks = _tokens(tm.cfg, seed=4)
+    jc = jm.init_decode(B, 32)
+    jc, _ = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks[:, :S0])},
+                                jc)
+    tc = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                      device="cpu")
+    assert len(tc) == 2 and tc[1].length == S0 and tc[1].k.shape == \
+        (B, 32, 1, 16)
+    with jax.disable_jit():
+        for i in range(3):
+            tok = toks[:, S0 + i:S0 + i + 1]
+            jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
+            tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
+            np.testing.assert_allclose(_np(tl)[..., :512], _np(jl)[..., :512],
+                                       atol=2e-2, rtol=0)
+    np.testing.assert_array_equal(_np(tc[0].k),
+                                  _np(jax.tree.leaves(jc)[0][0]))
+
+
+# ---------------- serving ----------------
+
+def test_serve_run_on_cpu():
+    """``serve.run`` at reduced size on the CPU: greedy tokens are the
+    argmax of a teacher-forced forward over prompt + output, and no kernel
+    launches."""
+    before = fa_kernel.COUNTER.launches
+    res = serve.run("qwen2-7b", prompt_len=16, gen=4, batch=2, seed=5,
+                    device="cpu")
+    assert fa_kernel.COUNTER.launches == before
+    assert res.tokens.shape == (2, 4) and res.prompt.shape == (2, 16)
+    assert res.prefill_logits.shape == res.logits.shape == (2, 1, 512)
+    assert bool(torch.isfinite(res.logits).all())
+    assert set(res.timings) == {"prefill_s", "decode_s", "ms_per_step",
+                                "tok_s"}
+    seq = torch.cat([res.prompt, torch.from_numpy(res.tokens[:, :-1])], 1)
+    full = res.model.forward({"tokens": seq})
+    np.testing.assert_array_equal(full[:, 15:].argmax(-1).numpy(), res.tokens)
+
+
+def test_serve_main_needs_cuda(monkeypatch):
+    """The command line runs on the card; without one it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "qwen2-7b",
+                                     "--prompt-len", "4", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch the flash_attention kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_the_kernel_per_layer(cuda_device):
+    """The same weights on the card: one flash_attention launch per layer
+    per prefill, logits within bf16 noise of the CPU's plain version."""
+    cfg = tconfigs.get_reduced("qwen2-7b")
+    cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(_tokens(cfg))
+    _, want = cpu.prefill({"tokens": toks}, cpu.init_decode(B, S))
+    before = fa_kernel.COUNTER.launches
+    _, got = gpu.prefill({"tokens": toks.to(cuda_device)},
+                         gpu.init_decode(B, S))
+    torch.cuda.synchronize()
+    assert fa_kernel.COUNTER.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=0)
