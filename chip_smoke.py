@@ -35,12 +35,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    shapes (torch.profiler), and the device ops that take the time;
 7. flash_attention kernel vs plain: the 18 cases of
    tests/test_kernels.py:20-37 (f32 / bf16 x causal, full, window 96), a
-   ragged S (100, 1000), GQA (Hkv < H) and Qwen2-7B's prefill (B 4, S 4096,
-   28 query / 4 KV heads, D 128, bf16), within f32 2e-5 / bf16 2e-2 and,
-   per output row, within f32 1e-4 / bf16 1e-2 of the row's largest
-   value; then
-   at the Qwen2-7B shape the kernel, its plain version and SDPA (causal,
-   GQA) timed as device time, beside the FLOP bound;
+   ragged S (100, 1000), GQA (Hkv < H), the edges of the bf16 kernel's
+   128-row tiles and Qwen2-7B's prefill (B 4, S 4096, 28 query / 4 KV
+   heads, D 128, bf16), within f32 2e-5 / bf16 2e-2 and, per output row,
+   within f32 1e-4 / bf16 1e-2 of the row's largest value; ptxas's
+   registers and spills of the bf16 kernel and how it rounds P; then at
+   the Qwen2-7B shape the kernel, its plain version and SDPA (causal,
+   GQA) timed as device time, beside the FLOP bound, with the kernel's
+   TFLOP/s and share of the bound;
 8. LM serving: ``serve.run("qwen2-7b", reduced=False)`` (all 28 layers at
    full width, random weights from seed 0), 4 requests of 4096 prompt
    tokens and 64 greedy tokens each; flash_attention launches read just
@@ -780,6 +782,15 @@ def phase_flash(dev):
               (1, 1000, 2, 2, 128, True, 96), (2, 1000, 2, 1, 64, False, 0),
               (2, 256, 8, 2, 64, True, 0), (2, 77, 28, 4, 128, True, 40),
               (1, 300, 4, 1, 16, False, 0), (2, 129, 4, 2, 32, True, 50)]
+    # the edges of the bf16 kernel's 128-query blocks and 128-key tiles, as
+    # in tests/test_torch_flash_attention.py: S 1, 127, 129, 257 and 203,
+    # window 1 and windows shorter than a tile, D 16 and 32 with GQA 7/1
+    edges = [(1, 1, 2, 1, 128, True, 0), (2, 127, 4, 2, 128, True, 0),
+             (2, 129, 4, 2, 128, False, 0), (1, 257, 2, 1, 128, True, 0),
+             (1, 203, 4, 1, 64, True, 30), (2, 300, 4, 4, 64, True, 1),
+             (1, 200, 2, 1, 128, False, 1), (1, 500, 4, 2, 128, True, 50),
+             (1, 500, 2, 2, 128, False, 100), (2, 200, 7, 1, 16, True, 0),
+             (2, 200, 7, 1, 32, False, 0)]
     big = (LM_BATCH, LM_PROMPT, 28, 4, 128, True, 0)
     # absolute bars as tests/test_kernels.py; relative to each output row's
     # largest value, f32 1e-4 (summation order) and bf16 1e-2 (a one-ulp
@@ -788,11 +799,11 @@ def phase_flash(dev):
     for dtype, tol, rel_tol in ((torch.float32, 2e-5, 1e-4),
                                 (torch.bfloat16, 2e-2, 1e-2)):
         for i, (B, S, H, hkv, D, causal, window) in enumerate(
-                cases + ([big] if dtype == torch.bfloat16 else [])):
+                cases + edges + ([big] if dtype == torch.bfloat16 else [])):
             q, k, v = flash_case(B, S, H, hkv, D, dtype, seed=i, dev=dev)
-            got = flash_kernel.flash_attention(q, k, v, causal=causal,
-                                               window=window)
-            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            mask = dict(causal=causal, window=window)
+            got = flash_kernel.flash_attention(q, k, v, **mask)
+            want = flash_attention_ref(q, k, v, **mask)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             rel = row_rel_err(got, want)
@@ -806,9 +817,18 @@ def phase_flash(dev):
     log(f"[flash] flash_attention within f32 2e-5 / bf16 2e-2 of plain, and "
         f"within f32 1e-4 / bf16 1e-2 of each output row's largest value, on "
         f"{n} cases: the 18 of tests/test_kernels.py, ragged S (100, 77, "
-        f"129, 300, 1000), GQA (28/4, 8/2, 4/1, 2/1) and the Qwen2-7B "
-        f"prefill {big}; max_abs_err={max_err:.3g}, row-relative "
-        f"{max_rel:.3g}")
+        f"129, 300, 1000), GQA (28/4, 8/2, 4/1, 2/1), the tile edges (S 1, "
+        f"127, 129, 203, 257, window 1, 30, 50, 100, D 16/32 at GQA 7/1) and "
+        f"the Qwen2-7B prefill {big}; max_abs_err={max_err:.3g}, "
+        f"row-relative {max_rel:.3g}")
+    p_mode = flash_kernel.p_mode()
+    log(f"[flash] P mode of the bf16 kernel (read from its source): "
+        f"{p_mode}")
+    ptxas = _build.ptxas_report("flash_attention", "flash_tma_kernelILi128E")
+    log(f"[flash] ptxas, bf16 kernel at D 128: {ptxas['registers']} "
+        f"registers, spill stores {ptxas['spill_stores']} B, spill loads "
+        f"{ptxas['spill_loads']} B, {ptxas['perf_notes']} performance-loss "
+        f"notes")
     B, S, H, hkv, D, causal, window = big
     q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=99, dev=dev)
     qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
@@ -826,15 +846,18 @@ def phase_flash(dev):
            "library_ms": graph_ms(library, reps=3, samples=7),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "max_abs_err": max_err}
+           "max_abs_err": max_err, "p_mode": p_mode, "ptxas": ptxas}
+    res["tflops"] = flop / res["ms"] * 1e-9
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     log(f"[flash] Qwen2-7B prefill B={B} S={S} H={H} Hkv={hkv} D={D} bf16 "
         f"causal ({flop:.3e} FLOP, {n_bytes} bytes): device time (CUDA-graph "
         f"replay) kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
         f"SDPA {res['library_ms']:.4f} ms; per eager call kernel "
         f"{k_call:.4f} ms; bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}; FLOP {t_ops:.4f} ms at 989 TFLOP/s, bytes "
-        f"{t_bytes:.4f} ms at 3.35 TB/s); kernel at "
-        f"{flop / res['ms'] * 1e-9:.1f} TFLOP/s")
+        f"{t_bytes:.4f} ms at 3.35 TB/s); kernel at {res['tflops']:.1f} "
+        f"TFLOP/s, {res['bound_share']:.3f} of the bound (the earlier "
+        f"mma.sync kernel: 3.1620 ms)")
     return res
 
 
@@ -930,7 +953,8 @@ def phase_lm(dev):
         f"{max(layer_err):.4g}, beyond one bf16 ulp {max(layer_excess):.4g} "
         f"over {len(layer_err)} layers (held to 2e-2); max logit difference "
         f"{diff:.4g} (logit RMS {rms:.4g}; not bounded); warm prefill kernel "
-        f"{t_kern * 1e3:.1f} ms, plain with the kernel beside it "
+        f"{t_kern * 1e3:.1f} ms (the earlier mma.sync kernel: 563-567 ms), "
+        f"plain with the kernel beside it "
         f"{t_plain * 1e3:.1f} ms")
 
     # where a decode step's time goes: 4 steps from the prefilled caches

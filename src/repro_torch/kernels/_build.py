@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root, at
 first use (the hash of the source keys the file, so an edited source
-rebuilds); ``build_all`` starts one ``nvcc`` per source, all at once.
+rebuilds), with nvcc's output (ptxas's report) beside it in
+``lib<name>-<hash>.log``; ``build_all`` starts one ``nvcc`` per source,
+all at once.
 Nothing here runs at import time: the CPU tests import every module on
 machines without ``nvcc``.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,14 +50,17 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all(names: Sequence[str]) -> List[Path]:
-    """Compile the kernels in ``names`` that are not built yet, one ``nvcc``
-    per source, all started together; their library paths.
+    """Compile the kernels in ``names`` that are not built yet (no library
+    or no log beside it), one ``nvcc`` per source, all started together;
+    their library paths.
 
     Raises ``RuntimeError`` with the compiler's output if a build fails.
-    Each library is written to a temporary name and renamed into place, so
-    a concurrent or interrupted build never leaves a half-written file."""
+    Each library and log is written to a temporary name and renamed into
+    place, the log first, so a concurrent or interrupted build never leaves
+    a half-written file or a library without its log."""
     paths = [_lib_path(n) for n in names]
-    todo = [(n, p) for n, p in zip(names, paths) if not p.exists()]
+    todo = [(n, p) for n, p in zip(names, paths)
+            if not (p.exists() and p.with_suffix(".log").exists())]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -72,6 +78,9 @@ def build_all(names: Sequence[str]) -> List[Path]:
             failed.append(f"kernel build of {name} failed (nvcc exit "
                           f"{proc.returncode}):\n{out}")
             continue
+        tmp_log = tmp.with_suffix(f".logtmp{os.getpid()}")
+        tmp_log.write_text(out)
+        os.replace(tmp_log, path.with_suffix(".log"))
         os.replace(tmp, path)
         BUILD_LOG[name] = (time.perf_counter() - t0, out)
     if failed:
@@ -86,3 +95,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all([name])[0]))
         _LOADED[name] = lib
     return lib
+
+
+def ptxas_report(name: str, entry: str) -> Dict[str, int]:
+    """What ptxas said of the kernel whose mangled name contains ``entry``
+    in the current build of ``name`` (built now if needed, else read from
+    the log beside the library): registers, spill stores and loads
+    (bytes), and how many "Potential Performance Loss" notes."""
+    build_all([name])
+    text = _lib_path(name).with_suffix(".log").read_text()
+    cur, rep = None, {"registers": None, "spill_stores": None,
+                      "spill_loads": None, "perf_notes": 0}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+        if "Performance Loss" in line and entry in line:
+            rep["perf_notes"] += 1
+        if cur is None or entry not in cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep["spill_stores"], rep["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep["registers"] = int(m[1])
+    return rep

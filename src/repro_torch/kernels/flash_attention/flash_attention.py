@@ -5,8 +5,8 @@ Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py`` (``flash_attention``).
 One launch computes a whole prefill attention in the model's layout:
 q (B, S, H, D) over k/v (B, S, Hkv, D), query head ``h`` reading KV head
-``h // (H // Hkv)``.  bf16 runs on the tensor cores, f32 on the CUDA
-cores.
+``h // (H // Hkv)``.  bf16 runs on the tensor cores (TMA loads, wgmma),
+f32 on the CUDA cores.
 
 The library is built and loaded at the first launch, never at import, so
 this module imports on machines without CUDA or ``nvcc``.
@@ -14,6 +14,7 @@ this module imports on machines without CUDA or ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
@@ -40,6 +41,16 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def p_mode() -> str:
+    """How the bf16 kernel rounds P before P V, read from its source:
+    ``issue_pv`` runs one register-form wgmma per bf16 part of P, so two
+    (P's bf16 high part and its remainder) are ``"split"`` and one is
+    ``"bf16"`` (the modes of ``emulate.round_p``)."""
+    src = (_build.CSRC / f"{KERNEL}.cu").read_text()
+    body = re.search(r"void issue_pv\(.*?\n}\n", src, re.S).group(0)
+    return {1: "bf16", 2: "split"}[body.count("wgmma_rs<")]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
