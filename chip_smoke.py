@@ -11,9 +11,13 @@ Phases, each of which raises (non-zero exit) on any failed check:
 2. kernel vs plain: each kernel's wrapper against its plain PyTorch version
    on the card (fts_lookup and figaro_reloc bitwise, figcache_decode
    within f32 2e-5 / bf16 2e-2), at the main paths' shapes and at corner
-   shapes, then both timed with CUDA events (median of 25 samples), per
-   eager call and as device time (CUDA-graph replay), beside the kernel's
-   bound and, where one exists, one PyTorch call computing the same;
+   shapes (figcache_decode: L = 1, L below the split count, ragged and
+   long L, D from 1 to 512, groups of 1 to 12 query heads), then both
+   timed with CUDA events (median of 25 samples), per eager call and as
+   device time (CUDA-graph replay), beside the kernel's bound and, where
+   one exists, one PyTorch call computing the same; figcache_decode's
+   plan at the figkv shape (splits, grid, cluster, shared memory) and its
+   device time by split count;
 3. golden pins: the six FCFS fingerprints of tests/test_obs.py:108-153 on
    the card, through the lookup kernel and through its plain version
    (12 runs);
@@ -409,19 +413,34 @@ def phase_decode(dev):
     cfg, fig, _, _ = figkv_geometry()
     H, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     L = FIGKV_N_SEL * fig.seg_tokens + 2 * fig.seg_tokens   # 160
-    shapes = [(FIGKV_BATCH, H, hkv, L, D), (2, 4, 4, 512, 64),
-              (1, 8, 8, 256, 128), (3, 2, 2, 384, 64)]
+    # (B, H, Hkv, L, D, splits or None for the plan's): the figkv shape and
+    # three older cases; L = 1; L < splits (forced); ragged L; long L (many
+    # ring chunks per split); D 16 / 256 / 512; groups of 1, 7, 8 and 12
+    # query heads (two head tiles); D whose rows are not whole 16-byte
+    # vectors (plain copies in place of bulk copies)
+    shapes = [(FIGKV_BATCH, H, hkv, L, D, None), (2, 4, 4, 512, 64, None),
+              (1, 8, 8, 256, 128, None), (3, 2, 2, 384, 64, None),
+              (2, 7, 1, 1, 128, None), (2, 8, 1, 3, 64, 8),
+              (3, 7, 1, 37, 128, None), (FIGKV_BATCH, H, hkv, 161, D, None),
+              (FIGKV_BATCH, H, hkv, 8192, D, None),
+              (2, 8, 2, 300, 16, None), (2, 4, 1, 200, 256, None),
+              (2, 8, 1, 100, 512, None), (1, 8, 1, 2048, 512, None),
+              (2, 12, 1, 50, 64, None), (2, 4, 2, 70, 100, None),
+              (2, 3, 1, 9, 1, None)]
     max_err = 0.0
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for i, (B, h, g, length, d) in enumerate(shapes):
+        for i, (B, h, g, length, d, splits) in enumerate(shapes):
             args = decode_case(B, h, g, length, d, dtype, seed=i, dev=dev)
-            got = decode_kernel.figcache_decode(*args)
+            got = decode_kernel.figcache_decode(*args, splits=splits)
             want = figcache_decode_ref(*args)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             max_err = max(max_err, err)
+            p = decode_kernel.plan(B, h, g, length, d, args[0].element_size(),
+                                   splits)
             check(err <= tol, f"figcache_decode kernel vs plain {err} > {tol}"
-                  f" at {dtype} (B, H, Hkv, L, D)={(B, h, g, length, d)}")
+                  f" at {dtype} (B, H, Hkv, L, D)={(B, h, g, length, d)}, "
+                  f"{p}")
             if B > 1:   # the one-valid row and the fully masked row
                 v = args[2].float()
                 one = v[0, length // 2].repeat_interleave(h // g, dim=0)
@@ -429,14 +448,22 @@ def phase_decode(dev):
                 check(float((got[0].float() - one).abs().max()) <= tol
                       and float((got[B - 1].float() - mean).abs().max())
                       <= 2 * tol, "figcache_decode: one-valid / fully masked "
-                      "rows do not return v / mean(v)")
+                      f"rows do not return v / mean(v) at {(B, h, g, length, d)}")
     log(f"[kernels] figcache_decode within f32 2e-5 / bf16 2e-2 of plain on "
-        f"{2 * len(shapes)} cases (B, H, Hkv, L, D) in {shapes}, with a "
-        f"one-valid and a fully masked row; max_abs_err={max_err:.3g}")
+        f"{2 * len(shapes)} cases (B, H, Hkv, L, D, forced splits) in "
+        f"{shapes}, with a one-valid row (its valid key at L // 2) and a "
+        f"fully masked row; max_abs_err={max_err:.3g}")
     B = FIGKV_BATCH
     q, k, v, valid = decode_case(B, H, hkv, L, D, torch.bfloat16, seed=7,
                                  dev=dev)
     valid[0, 0] = valid[B - 1, 0] = True    # SDPA needs a valid entry per row
+    p = decode_kernel.plan(B, H, hkv, L, D, 2)
+    log(f"[kernels] figcache_decode plan at the figkv shape: {p.splits} "
+        f"splits of {L} keys (cluster size {p.splits}), {p.tiles} head "
+        f"tile(s) of {H // hkv} query heads, grid {p.blocks} blocks of 256 "
+        f"threads, {p.chunk} keys x {p.stages} ring stage(s), "
+        f"{decode_kernel.smem_bytes(H, hkv, L, D, torch.bfloat16, p)} bytes "
+        "of shared memory per block")
     qs = q[:, :, None]
     ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     mask = valid[:, None, None, :]
@@ -450,6 +477,11 @@ def phase_decode(dev):
                 lambda: figcache_decode_ref(q, k, v, valid),
                 lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True),
                 max(t_bytes, t_ops))
+    sweep = {s: graph_ms(lambda s=s: decode_kernel.figcache_decode(
+        q, k, v, valid, splits=s)) for s in range(1, 9)}
+    log("[kernels] figcache_decode device time by split count at the figkv "
+        "shape: " + ", ".join(f"{s}: {t * 1e3:.3f} us"
+                              for s, t in sweep.items()))
     res.update(max_abs_err=max_err,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return res
