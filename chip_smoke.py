@@ -1,13 +1,14 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
-simulator and the FIGCache-KV serving path.
+simulator, the FIGCache-KV serving path and the dense LM serving path.
 
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on any failed check:
 
 1. device: the card's name and power limit; build every CUDA kernel of the
-   port from ``src/repro_torch/csrc`` with nvcc (sm_90a), one nvcc per
-   source, all started together, timed;
+   port from ``src/repro_torch/csrc`` with nvcc (sm_90a), and the
+   latency probe beside them, one nvcc per source, all started together,
+   timed;
 2. kernel vs plain: each kernel's wrapper against its plain PyTorch version
    on the card (fts_lookup and figaro_reloc bitwise, figcache_decode
    within f32 2e-5 / bf16 2e-2), at the main paths' shapes and at corner
@@ -19,14 +20,22 @@ Phases, each of which raises (non-zero exit) on any failed check:
    plan at the figkv shape (splits, grid, cluster, shared memory) and its
    device time by split count;
 3. golden pins: the six FCFS fingerprints of tests/test_obs.py:108-153 on
-   the card, through the lookup kernel and through its plain version
-   (12 runs);
+   the card, through the replay kernel (sim_scan), through the eager step
+   loop with the lookup kernel and through the eager loop with the
+   lookup's plain version (18 runs);
 4. simulator main path: ``simulator.run_eight_core_batch`` over the fig-8
    workload set (benchmarks/common.py ALL_WL), 4 channels x 6144 requests,
-   all six paper mechanisms, default configs (the card runs the lookup
-   kernel by default); launch counts read just around it; workload 15
-   rerun alone with the plain lookup patched in, for the mechanisms with a
-   cache (the only ones that reach the lookup), compared bitwise;
+   all six paper mechanisms, default configs, through the replay kernel
+   (one sim_scan launch per static group, no fts_lookup launch); then the
+   same grid through the eager loop (``dram._advance_eager`` patched in:
+   one fts_lookup launch per cached step), every counter compared bitwise
+   and both wall times printed; launch counts read just around each run;
+   workload 15 rerun alone through the eager loop with the plain lookup,
+   for the mechanisms with a cache, compared bitwise; then sim_scan's
+   device time per static group (CUDA events) beside its byte bound and
+   its chain bound: T x a step's dependent round trips (CHAIN, counted
+   from the code) at the L1, L2, store-reload and shuffle latencies that
+   the latency probe (csrc/latency_probe.cu) measures on the card;
 5. FIGCache-KV path: ``serve.demo_figkv`` at Qwen2-7B's full attention
    width (28 query / 4 KV heads, head_dim 128, bf16, default FIGKVConfig),
    batch 8, a 32768-token prompt and 256 decode steps; launch counts read
@@ -35,15 +44,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    pool compared bitwise, outputs within bf16 atol 2e-2; then
    ``embed_cache_lookup`` over Qwen2-7B's embedding table, 256 steps of 64
    Zipf-drawn tokens, every output equal to ``table[tokens]``;
-6. profile: device busy and idle share of the simulator's steps at its
-   shapes (torch.profiler), and the device ops that take the time;
+6. profile: device busy and idle share of the simulator's replay at its
+   shapes (torch.profiler): a whole 6144-step group through the replay
+   kernel, and 128 steps through the eager loop; the device ops that take
+   the time;
 7. flash_attention kernel vs plain: the 18 cases of
    tests/test_kernels.py:20-37 (f32 / bf16 x causal, full, window 96), a
    ragged S (100, 1000), GQA (Hkv < H), the edges of the bf16 kernel's
-   128-row tiles and Qwen2-7B's prefill (B 4, S 4096, 28 query / 4 KV
-   heads, D 128, bf16), within f32 2e-5 / bf16 2e-2 and, per output row,
-   within f32 1e-4 / bf16 1e-2 of the row's largest value; ptxas's
-   registers and spills of the bf16 kernel and how it rounds P; then at
+   128-row tiles, the zero-padded head dims (8, 20, 160) and D 192, and
+   Qwen2-7B's prefill (B 4, S 4096, 28 query / 4 KV heads, D 128, bf16),
+   within f32 2e-5 / bf16 2e-2 and, per output row, within f32 1e-4 /
+   bf16 1e-2 of the row's largest value; ptxas's registers and spills of
+   the bf16 kernel (D 128 and 192) and how it rounds P; then at
    the Qwen2-7B shape the kernel, its plain version and SDPA (causal,
    GQA) timed as device time, beside the FLOP bound, with the kernel's
    TFLOP/s and share of the bound;
@@ -55,9 +67,17 @@ Phases, each of which raises (non-zero exit) on any failed check:
    its call site, every layer's kernel output held against the plain one
    on that layer's inputs (the bound and its reason are in ``phase_lm``);
    prefill ms, decode ms/step, tokens/s, peak device memory, and a profile
-   of the decode step;
+   of the decode step; then ``serve.run("stablelm-12b")`` reduced (head
+   dim 20, which the kernel runs zero-padded to 32): one flash_attention
+   launch per layer, finite logits, each layer's kernel output held
+   against the plain version on its own inputs;
 9. summary: one ``{"kernels": [...]}`` JSON line (device times from
-   CUDA-graph replay), the nvidia-smi line, and last the
+   CUDA-graph replay; sim_scan's from CUDA events around one launch, its
+   plain version's the eager loop's group wall, with its chain bound
+   beside the byte bound; fts_lookup's launches are the main path's, 0,
+   since it runs inlined in sim_scan, and its launches through the eager
+   loop a field apart), the nvidia-smi line, and
+   last the
    ``{"ok": true, "device": ...}`` line.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
@@ -65,6 +85,7 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import pathlib
 import statistics
@@ -96,6 +117,7 @@ from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.fts_lookup import fts_lookup as fts_kernel  # noqa: E402
 from repro_torch.kernels.fts_lookup.ref import fts_lookup_ref  # noqa: E402
+from repro_torch.kernels.sim_scan import sim_scan as scan_kernel  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 
@@ -105,7 +127,8 @@ N_CHANNELS = 4
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12                        # dense tensor-core peak
 KERNELS = ("fts_lookup", "figaro_reloc", "figcache_decode",
-           "flash_attention")
+           "flash_attention", "sim_scan")
+PROBES = ("latency_probe",)                     # a measurement, not a port
 # the FIGCache-KV phase: Qwen2-7B (src/repro/configs/qwen2_7b.py), its 32k
 # pretraining context (arXiv:2407.10671), 256 decode steps, batch 8
 FIGKV_ARCH, FIGKV_BATCH, FIGKV_PROMPT, FIGKV_GEN = "qwen2-7b", 8, 32768, 256
@@ -114,6 +137,8 @@ EMBED_STEPS, EMBED_TOKENS, ZIPF_S = 256, 64, 1.1
 # LM serving: Qwen2-7B at full width, 4 requests of 4096 prompt tokens and
 # 64 generated tokens each
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-7b", 4, 4096, 64
+# the reduced StableLM-12B (head dim 20: the padded head-dim path)
+PAD_ARCH = "stablelm-12b"
 
 # (acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks, row_hits,
 #  cache_hits, insertions, sum(lat_sum_ns), sum(req_cnt), t_end): the FCFS
@@ -503,28 +528,39 @@ def reuse_trace(n=320):
 def phase_golden(dev):
     tr = reuse_trace()
     t0 = time.perf_counter()
+    eager = dram._advance_eager
+    routes = (("replay kernel", {}),
+              ("eager loop, lookup kernel", {"_advance": eager}),
+              ("eager loop, plain lookup",
+               {"_advance": eager, "fts_lookup_op": plain_lookup_op}))
+    n = 0
     for mech, want in GOLDEN_FCFS.items():
         kw = {"cache_rows": 2} if mech not in ("base", "lldram") else {}
         cfg = timing.paper_config(mech, **kw)
-        for lookup, patch in (("kernel", {}),
-                              ("plain", {"fts_lookup_op": plain_lookup_op})):
+        for route, patch in routes:
+            before = scan_kernel.COUNTER.launches
             with patched(dram, **patch):
                 cnt = dram.run_channel(tr, cfg, device=dev)
             got = tuple(int(x.sum()) for x in cnt)
-            check(got == want, f"golden {mech} ({lookup} lookup): {got} != "
-                  f"{want}")
-    log(f"[golden] 12/12 FCFS fingerprints match tests/test_obs.py GOLDEN "
-        f"through the lookup kernel and its plain version "
+            check(got == want, f"golden {mech} ({route}): {got} != {want}")
+            check(scan_kernel.COUNTER.launches - before ==
+                  (1 if route == "replay kernel" else 0),
+                  f"golden {mech} ({route}): sim_scan launch count")
+            n += 1
+    log(f"[golden] {n}/18 FCFS fingerprints match tests/test_obs.py GOLDEN "
+        f"through the replay kernel, the eager loop with the lookup kernel "
+        f"and the eager loop with its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
-def phase_main(dev):
-    wl_idx = list(FIG8_WORKLOADS)
-    all_wl = traces.eight_core_workloads()
-    wls = [all_wl[i] for i in wl_idx]
+def run_grid(wls, dev):
+    """``run_eight_core_batch`` over ``wls``: the results, the wall time,
+    each static group's (mechanism, trace shape, synchronised wall s) and
+    the launches of the replay and lookup kernels, counted from 0 just
+    before the run and read just after it."""
     groups = []
     real_run_sweep = dram.run_sweep
 
@@ -537,31 +573,46 @@ def phase_main(dev):
                        time.perf_counter() - t0))
         return out
 
-    dram.run_sweep = timed_run_sweep
-    try:
+    with patched(dram, run_sweep=timed_run_sweep):
+        scan_kernel.COUNTER.launches = 0
         fts_kernel.COUNTER.launches = 0
         t0 = time.perf_counter()
         res = simulator.run_eight_core_batch(wls, per_channel=PER_CHANNEL,
                                              device=dev)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fts_kernel.COUNTER.launches
-    finally:
-        dram.run_sweep = real_run_sweep
-    cached = [m for m in simulator.PAPER_MECHS
-              if timing.paper_config(m).has_cache]
-    n_cached = len(cached)
-    log(f"[main] run_eight_core_batch: {len(wls)} workloads x "
-        f"{N_CHANNELS} channels x {PER_CHANNEL} requests x "
-        f"{len(simulator.PAPER_MECHS)} mechanisms in {wall:.1f} s; "
-        f"fts_lookup launches {launches}")
-    check(launches == n_cached * PER_CHANNEL,
-          f"fts_lookup launched {launches} times, expected "
-          f"{n_cached} x {PER_CHANNEL}")
+        launches = {"sim_scan": scan_kernel.COUNTER.launches,
+                    "fts_lookup": fts_kernel.COUNTER.launches}
+    return res, wall, groups, launches
+
+
+def log_groups(label, groups):
     for mech, shape, secs in groups:
         lanes, steps = shape[0], shape[1]
-        log(f"[main]   group {mech:15s} lanes={lanes} steps={steps} "
-            f"wall={secs:.2f} s  {steps / secs:.0f} steps/s  "
+        log(f"[main]   {label} group {mech:15s} lanes={lanes} steps={steps} "
+            f"wall={secs:.4f} s  {steps / secs:.0f} steps/s  "
             f"{steps * lanes / secs:.0f} request-lanes/s")
+
+
+def phase_main(dev):
+    wl_idx = list(FIG8_WORKLOADS)
+    all_wl = traces.eight_core_workloads()
+    wls = [all_wl[i] for i in wl_idx]
+    cached = [m for m in simulator.PAPER_MECHS
+              if timing.paper_config(m).has_cache]
+    n_mech = len(simulator.PAPER_MECHS)
+
+    # the main path: one sim_scan launch per static group, no lookup launch
+    res, wall, groups, launches = run_grid(wls, dev)
+    log(f"[main] run_eight_core_batch through the replay kernel: "
+        f"{len(wls)} workloads x {N_CHANNELS} channels x {PER_CHANNEL} "
+        f"requests x {n_mech} mechanisms in {wall:.3f} s; launches "
+        f"sim_scan {launches['sim_scan']}, fts_lookup "
+        f"{launches['fts_lookup']}")
+    check(launches == {"sim_scan": n_mech, "fts_lookup": 0},
+          f"kernel run launched {launches}, expected sim_scan {n_mech} (one "
+          f"per static group) and no fts_lookup")
+    log_groups("kernel", groups)
     for w, r in zip(wl_idx, res):
         for m, x in r.items():
             check(x.ipc.shape == (8,) and np.isfinite(x.ipc).all()
@@ -576,25 +627,201 @@ def phase_main(dev):
     log("[main] mean weighted speedup vs base over the workloads: " +
         ", ".join(f"{m}={v:.4f}" for m, v in avg.items()))
 
-    # workload 15 alone through the plain lookup: bitwise equal to its
-    # slice.  Only the cached mechanisms reach the lookup, so only they rerun.
-    before = fts_kernel.COUNTER.launches
+    # the same grid through the eager loop (the kernel's plain version, one
+    # fts_lookup launch per cached step): every counter bitwise
+    with patched(dram, _advance=dram._advance_eager):
+        res_e, wall_e, groups_e, launches_e = run_grid(wls, dev)
+    log(f"[main] the same grid through the eager loop: {wall_e:.3f} s "
+        f"(replay kernel {wall:.3f} s, {wall_e / wall:.1f}x); launches "
+        f"sim_scan {launches_e['sim_scan']}, fts_lookup "
+        f"{launches_e['fts_lookup']}")
+    check(launches_e == {"sim_scan": 0,
+                         "fts_lookup": len(cached) * PER_CHANNEL},
+          f"eager run launched {launches_e}, expected fts_lookup "
+          f"{len(cached)} x {PER_CHANNEL} and no sim_scan")
+    log_groups("eager ", groups_e)
+    max_err = 0
+    for w, a_r, b_r in zip(wl_idx, res, res_e):
+        for m in simulator.PAPER_MECHS:
+            for f, a, b in zip(dram.Counters._fields, a_r[m].counters,
+                               b_r[m].counters):
+                max_err = max(max_err, int(np.abs(
+                    a.astype(np.int64) - b.astype(np.int64)).max()))
+                check(np.array_equal(a, b), f"workload {w} {m} {f}: replay "
+                      f"kernel differs from the eager loop")
+    log(f"[main] replay kernel == eager loop bitwise on every counter of "
+        f"{len(wls)} workloads x {n_mech} mechanisms; max_abs_err={max_err}")
+
+    # workload 15 alone through the eager loop with the plain lookup:
+    # bitwise equal to its slice of the kernel run.  Only the cached
+    # mechanisms reach the lookup, so only they rerun.
+    before = fts_kernel.COUNTER.launches, scan_kernel.COUNTER.launches
     t0 = time.perf_counter()
-    with patched(dram, fts_lookup_op=plain_lookup_op):
+    with patched(dram, _advance=dram._advance_eager,
+                 fts_lookup_op=plain_lookup_op):
         alone = simulator.run_eight_core(all_wl[15], mechanisms=cached,
                                          per_channel=PER_CHANNEL, device=dev)
-    check(fts_kernel.COUNTER.launches == before,
-          "plain-lookup rerun launched the kernel")
+    check((fts_kernel.COUNTER.launches, scan_kernel.COUNTER.launches) ==
+          before, "plain-lookup rerun launched a kernel")
     batch = res[wl_idx.index(15)]
     for m in cached:
         for f, a, b in zip(dram.Counters._fields, alone[m].counters,
                            batch[m].counters):
             check(np.array_equal(a, b), f"wl15 {m} {f}: plain rerun "
                   "differs from the kernel batch")
-    log(f"[main] workload 15 rerun alone with the plain lookup for {cached}: "
-        f"counters bitwise equal to its batch slice "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return launches
+    log(f"[main] workload 15 rerun alone through the eager loop with the "
+        f"plain lookup for {cached}: counters bitwise equal to its slice of "
+        f"the kernel run ({time.perf_counter() - t0:.1f} s)")
+    eager_s = {m: secs for m, _, secs in groups_e}
+    return {"launches": launches, "eager_launches": launches_e,
+            "max_abs_err": max_err, "eager_group_s": eager_s,
+            "kernel_wall": wall, "eager_wall": wall_e}
+
+
+# The leaves one replay reads without writing them: the trace, the
+# params and the free list (commit() never stores it); an uncached
+# mechanism touches no FTS leaf at all.
+READ_ONLY_STATE = ("fts.free_list",)
+
+
+def state_bytes(tr, lp, bank, cnt, has_cache) -> int:
+    """Bytes one replay must move: the trace, params and read-only leaves
+    read once, every leaf it updates read once and written once."""
+    n = 0
+    for x in (*tr, *lp):
+        n += x.numel() * x.element_size()
+    for name, x in scan_kernel._leaves(bank, cnt):
+        if name.startswith("fts.") and not has_cache:
+            continue
+        n += x.numel() * x.element_size() * (
+            1 if name in READ_ONLY_STATE else 2)
+    return n
+
+
+# Dependent round trips of one replay step (csrc/sim_scan.cu with
+# sim_step.cuh), counted from the code in issue order.  Only what every
+# step does is counted, so the count is a floor: the RowBenefit victim
+# row's mask rewrite on an insert into a full row and the first step's
+# clamp of every core are left out.
+#   l2    the step's trace row (six loads, one trip): each step is a new
+#         line for every lane, which no other lane's SM has in its L1;
+#   l1    cached (all four use RowBenefit): the bank row scan
+#         (fts_lookup_warp), the gather of the victim row's benefit (it
+#         needs the scan's argmin), the written slot's tag, valid, dirty,
+#         benefit and last_use (they need the victim), and in commit() the
+#         reload of segs_per_row that row_sum's index needs (the earlier
+#         stores may alias it); uncached: mshr_idx, then the ring entry it
+#         names;
+#   shfl  cached: the lookup's five shuffle stages;
+#   rmw   commit()'s read-modify-writes, each load kept below the previous
+#         store (the pointers may alias): row_sum and n_valid (cached), then
+#         lat_sum_ns, req_cnt and the ten per-lane counters.
+CHAIN = {True: {"l2": 1, "l1": 4, "shfl": 5, "rmw": 14},
+         False: {"l2": 1, "l1": 2, "shfl": 0, "rmw": 12}}
+
+
+def probe_latencies(dev, samples=5):
+    """ns per dependent round trip on this card (csrc/latency_probe.cu):
+    an L1 hit (a 128-line cycle, 16 KB), an L2 hit (a 65536-line cycle,
+    8 MB: over the 256 KB L1, under the 50 MB L2), a load of a line the
+    thread stored one iteration before, and a warp shuffle.  Each is the
+    median over ``samples`` of (time of 2k steps - time of k) / k."""
+    lib = _build.load("latency_probe")
+    fn = lib.latency_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def cycle(n_lines, seed):
+        words = 32                                   # 128-byte lines
+        order = np.random.default_rng(seed).permutation(n_lines)
+        buf = np.zeros(n_lines * words, np.int32)
+        buf[order * words] = np.roll(order, -1) * words
+        return torch.from_numpy(buf).to(dev)
+
+    def ns_per_step(buf, mode, k, per_step=1):
+        def run(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            check(fn(buf.data_ptr(), out.data_ptr(), steps, mode, stream)
+                  == 0, f"latency probe mode {mode} failed to launch")
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+        run(k)                                       # warm the lines
+        per = [(run(2 * k) - run(k)) * 1e6 / k / per_step
+               for _ in range(samples)]
+        return statistics.median(per)
+
+    words = torch.zeros(64, dtype=torch.int32, device=dev)
+    lat = {"l1": ns_per_step(cycle(128, 0), 0, 1 << 16),
+           "l2": ns_per_step(cycle(1 << 16, 1), 0, 1 << 14),
+           "rmw": ns_per_step(words, 1, 1 << 15, per_step=2),
+           "shfl": ns_per_step(words, 2, 1 << 16)}
+    log("[scan] dependent round trips on this card (latency_probe, median "
+        "of 5): " + ", ".join(f"{k} {v:.2f} ns" for k, v in lat.items()))
+    return lat
+
+
+def phase_scan_timing(dev, samples=5):
+    """sim_scan's device time per static group of the fig-8 grid (CUDA
+    events around the launch alone, median of ``samples``, each launch on
+    a fresh clone of the initial state), beside its byte bound and its
+    chain bound (T x a step's dependent round trips, CHAIN, at the
+    latencies ``probe_latencies`` measures)."""
+    lat = probe_latencies(dev)
+    all_wl = traces.eight_core_workloads()
+    t0 = time.perf_counter()
+    trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, PER_CHANNEL, 2)
+           for i in FIG8_WORKLOADS]
+    log(f"[scan] the fig-8 grid's {len(trs)} traces built on the host (as "
+        f"run_eight_core_batch builds them) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    flat = dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
+    out = {}
+    for mech in simulator.PAPER_MECHS:
+        cfg = timing.paper_config(mech)
+        static = cfg.static
+        params = timing.stack_params([cfg.params(device=dev)])
+        state = dram.sim_init(static, channels=flat.t_issue.shape[0],
+                              device=dev)
+        tr, lp, bank0, cnt0 = dram._lay_out(flat, params, state, dev)
+        per = []
+        for _ in range(samples):
+            bank = dram.BankState(*[
+                x.clone() if isinstance(x, torch.Tensor)
+                else type(x)(*[y.clone() for y in x]) for x in bank0])
+            cnt = dram.Counters(*[x.clone() for x in cnt0])
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            scan_kernel.sim_scan(tr, lp, bank, cnt, static, dram.GEOM)
+            b.record()
+            b.synchronize()
+            per.append(a.elapsed_time(b))
+        T, N = tr.t_issue.shape
+        ms = statistics.median(per)
+        n_bytes = state_bytes(tr, lp, bank0, cnt0, static.has_cache)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        chain = CHAIN[static.has_cache]
+        step_ns = sum(n * lat[k] for k, n in chain.items())
+        chain_ms = T * step_ns * 1e-6
+        out[mech] = {"ms": ms, "bound_ms": bound, "bytes": n_bytes,
+                     "chain_ms": chain_ms, "T": T, "N": N, "samples": per}
+        log(f"[scan] sim_scan {mech:15s} N={N} T={T} max_slots="
+            f"{static.max_slots}: device time {ms:.4f} ms (samples "
+            f"{min(per):.4f}-{max(per):.4f}), {ms / T * 1e3:.4f} us per step "
+            f"per lane; byte bound {bound * 1e3:.3f} us ({n_bytes} bytes), "
+            f"{ms / bound:.0f}x; chain bound {chain_ms:.4f} ms (T x "
+            f"{step_ns:.1f} ns: " + " + ".join(
+                f"{n} {k}" for k, n in chain.items() if n) +
+            f"), {ms / chain_ms:.2f}x")
+        del tr, lp, bank0, cnt0, bank, cnt
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -745,31 +972,40 @@ def profile_replay(label, replay, steps):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    log(f"[profile] {label} steps={steps}: wall {wall / steps * 1e3:.3f} "
-        f"ms/step unprofiled, device busy {busy / steps * 1e3:.3f} ms/step "
-        f"({len(kern) / steps:.1f} device ops/step), device idle share "
-        f"{1 - busy / wall:.4f}")
+    log(f"[profile] {label} steps={steps}: wall {wall * 1e3:.3f} ms "
+        f"({wall / steps * 1e3:.4f} ms/step) unprofiled, device busy "
+        f"{busy * 1e3:.3f} ms ({busy / steps * 1e3:.4f} ms/step) over "
+        f"{len(kern)} device ops ({len(kern) / steps:.2f}/step), device idle "
+        f"share {1 - busy / wall:.4f}")
     for name, (us, c) in top:
         log(f"[profile]   {us / c:8.3f} us x {c / steps:5.1f}/step  "
             f"{name[:90]}")
 
 
-def phase_profile(dev, steps=128):
-    """Profile ``steps`` requests of the simulator's replay at its shapes
-    (the workloads x 4 channels as lanes, S = 512)."""
+def phase_profile(dev, eager_steps=128):
+    """Profile the simulator's replay at its shapes (the workloads x 4
+    channels as lanes, S = 512): a whole group of ``PER_CHANNEL`` steps
+    through the replay kernel (``run_sweep``, host layout included), and
+    ``eager_steps`` steps through the eager loop."""
     all_wl = traces.eight_core_workloads()
-    trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, steps, 2)
-           for i in FIG8_WORKLOADS]
-    flat = dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
-    for mech in ("figcache_fast", "base"):
-        cfg = timing.paper_config(mech)
-        params = timing.stack_params([cfg.params(device=dev)])
+    for label, steps, advance in (("replay kernel", PER_CHANNEL, None),
+                                  ("eager loop", eager_steps,
+                                   dram._advance_eager)):
+        trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, steps, 2)
+               for i in FIG8_WORKLOADS]
+        flat = dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
+        for mech in ("figcache_fast", "base"):
+            cfg = timing.paper_config(mech)
+            params = timing.stack_params([cfg.params(device=dev)])
 
-        def replay():
-            dram.run_sweep(flat, cfg.static, params, device=dev)
-            torch.cuda.synchronize()
+            def replay():
+                with patched(dram, **({"_advance": advance} if advance
+                                      else {})):
+                    dram.run_sweep(flat, cfg.static, params, device=dev)
+                torch.cuda.synchronize()
 
-        profile_replay(f"{mech} lanes={flat.t_issue.shape[0]}", replay, steps)
+            profile_replay(f"{label} {mech} lanes={flat.t_issue.shape[0]}",
+                           replay, steps)
 
 
 # ---------------------------------------------------------------------------
@@ -823,6 +1059,12 @@ def phase_flash(dev):
              (1, 200, 2, 1, 128, False, 1), (1, 500, 4, 2, 128, True, 50),
              (1, 500, 2, 2, 128, False, 100), (2, 200, 7, 1, 16, True, 0),
              (2, 200, 7, 1, 32, False, 0)]
+    # head dims that run zero-padded (the reduced DeepSeek-67B's 8, the
+    # reduced StableLM-12B's 20, StableLM-12B's 160 at its 32 / 8 heads)
+    # and D 192 itself, whose bf16 kernel runs 64-key tiles
+    edges += [(2, 100, 4, 2, 8, True, 0), (2, 77, 4, 1, 20, False, 30),
+              (2, 1000, 32, 8, 160, True, 0), (1, 129, 4, 4, 160, False, 0),
+              (1, 65, 2, 1, 192, True, 0), (1, 300, 4, 2, 192, True, 50)]
     big = (LM_BATCH, LM_PROMPT, 28, 4, 128, True, 0)
     # absolute bars as tests/test_kernels.py; relative to each output row's
     # largest value, f32 1e-4 (summation order) and bf16 1e-2 (a one-ulp
@@ -850,17 +1092,22 @@ def phase_flash(dev):
         f"within f32 1e-4 / bf16 1e-2 of each output row's largest value, on "
         f"{n} cases: the 18 of tests/test_kernels.py, ragged S (100, 77, "
         f"129, 300, 1000), GQA (28/4, 8/2, 4/1, 2/1), the tile edges (S 1, "
-        f"127, 129, 203, 257, window 1, 30, 50, 100, D 16/32 at GQA 7/1) and "
+        f"127, 129, 203, 257, window 1, 30, 50, 100, D 16/32 at GQA 7/1), "
+        f"padded D 8/20/160, D 192, and "
         f"the Qwen2-7B prefill {big}; max_abs_err={max_err:.3g}, "
         f"row-relative {max_rel:.3g}")
     p_mode = flash_kernel.p_mode()
     log(f"[flash] P mode of the bf16 kernel (read from its source): "
         f"{p_mode}")
-    ptxas = _build.ptxas_report("flash_attention", "flash_tma_kernelILi128E")
-    log(f"[flash] ptxas, bf16 kernel at D 128: {ptxas['registers']} "
-        f"registers, spill stores {ptxas['spill_stores']} B, spill loads "
-        f"{ptxas['spill_loads']} B, {ptxas['perf_notes']} performance-loss "
-        f"notes")
+    for d in (128, 192):
+        rep = _build.ptxas_report("flash_attention",
+                                  f"flash_tma_kernelILi{d}E")
+        log(f"[flash] ptxas, bf16 kernel at D {d}: {rep['registers']} "
+            f"registers, spill stores {rep['spill_stores']} B, spill loads "
+            f"{rep['spill_loads']} B, {rep['perf_notes']} performance-loss "
+            f"notes")
+        if d == 128:
+            ptxas = rep
     B, S, H, hkv, D, causal, window = big
     q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=99, dev=dev)
     qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
@@ -1007,6 +1254,49 @@ def phase_lm(dev):
     return launches
 
 
+def phase_lm_padded(dev):
+    """``serve.run`` of the reduced StableLM-12B (head dim 20, run
+    zero-padded to 32) on the card: one flash_attention launch per layer,
+    finite logits, and each layer's kernel output within phase 7's 2e-2
+    plus one bf16 ulp of the plain version on that layer's inputs."""
+    cfg = configs.get_reduced(PAD_ARCH)
+    flash_kernel.COUNTER.launches = 0
+    res = serve.run(PAD_ARCH, prompt_len=64, gen=8, batch=2, seed=0,
+                    device=dev)
+    launches = flash_kernel.COUNTER.launches
+    check(launches == cfg.n_layers, f"{PAD_ARCH}: flash_attention launched "
+          f"{launches} times in one prefill, expected {cfg.n_layers}")
+    v = cfg.vocab_size
+    check(res.tokens.shape == (2, 8) and bool(torch.isfinite(
+        res.logits[..., :v]).all()) and bool(torch.isfinite(
+            res.prefill_logits[..., :v]).all()),
+          f"{PAD_ARCH}: tokens {res.tokens.shape} or logits not finite")
+    real_mha = attention.mha
+    excess, err = [], []
+
+    def checked(q, k, v, *, causal=True, window=0):
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        got = real_mha(q, k, v, causal=causal, window=window)
+        err.append(float((got.float() - want.float()).abs().max()))
+        excess.append(ulp_excess(got, want))
+        return want
+
+    with patched(attention, mha=checked):
+        res.model.prefill({"tokens": res.prompt},
+                          res.model.init_decode(2, 64 + 8 + 8))
+    torch.cuda.synchronize()
+    check(len(excess) == cfg.n_layers and max(excess) <= 2e-2,
+          f"{PAD_ARCH}: kernel vs plain per layer beyond one bf16 ulp "
+          f"{excess} (max abs {err})")
+    log(f"[lm] {PAD_ARCH} reduced (D={cfg.hd}, padded to "
+        f"{flash_kernel.padded_head_dim(cfg.hd)}; {cfg.n_layers} layers, "
+        f"H={cfg.n_heads} Hkv={cfg.n_kv_heads}): served batch 2, prompt 64, "
+        f"8 tokens; flash_attention launches {launches}; each layer's "
+        f"kernel output vs plain max abs {max(err):.4g}, beyond one bf16 ulp "
+        f"{max(excess):.4g} (held to 2e-2)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1019,7 +1309,7 @@ def main():
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
+    _build.build_all(KERNELS + PROBES)
     for name in KERNELS:
         _build.load(name)
     log(f"[build] {len(KERNELS)} kernels built in parallel in "
@@ -1033,20 +1323,40 @@ def main():
     reloc = phase_reloc(dev)
     decode = phase_decode(dev)
     phase_golden(dev)
-    launches = phase_main(dev)
+    main_run = phase_main(dev)
+    scan = phase_scan_timing(dev)
     figkv_launches = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
     lm_launches = phase_lm(dev)
+    phase_lm_padded(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
+    # on the main path the lookup runs inlined in sim_scan, so the
+    # standalone kernel launches there no time; its launches through the
+    # eager loop (the replay's plain version, phase 4) are a field apart
     rows = [{
         "name": "fts_lookup", "route": "cuda",
         "source": "src/repro_torch/csrc/fts_lookup.cu",
         "replaces": "src/repro/kernels/fts_lookup/fts_lookup.py:50",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms,
+        "launches": main_run["launches"]["fts_lookup"],
+        "inlined_in": "src/repro_torch/csrc/sim_scan.cu",
+        "eager_loop_launches": main_run["eager_launches"]["fts_lookup"],
+        "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
         "library_ms": None}]
+    # sim_scan carries the lookup's TPU kernel inlined, and replaces the
+    # fused lax.scan (src/repro/core/dram.py:1028) that called it
+    fast = scan["figcache_fast"]
+    rows.append({
+        "name": "sim_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/sim_scan.cu",
+        "replaces": "src/repro/kernels/fts_lookup/fts_lookup.py:50",
+        "launches": main_run["launches"]["sim_scan"],
+        "max_abs_err": main_run["max_abs_err"], "ms": fast["ms"],
+        "plain_ms": main_run["eager_group_s"]["figcache_fast"] * 1e3,
+        "bound_ms": fast["bound_ms"], "bound_by": "bytes",
+        "chain_bound_ms": fast["chain_ms"], "library_ms": None})
     for name, res, line in (("figaro_reloc", reloc, 38),
                             ("figcache_decode", decode, 59)):
         rows.append({

@@ -13,16 +13,24 @@ Per-lane state (``BankState``): open row + busy-until time per bank, a
 banked FTS (``core/fts.py``), the MSHR ring per core and the channel's data
 bus.  All of it is int32 (bool for flags) and updated in place by the step:
 ``resume`` clones its input state once, so callers' tensors never change.
-A step reads nothing back to the host — branches are ``torch.where`` — so
-on a CUDA device the loop only enqueues work.
 
-On a CUDA device the tag compare + victim argmin of every cached step
-goes through ``kernels/fts_lookup``, the hand-written CUDA kernel, whatever
-``StaticConfig.fts_kernel`` says: the flag keeps the JAX package's default
-(False) so that configs compare field for field, and the card runs its
-kernel by default all the same.  On the CPU ``fts_kernel=True`` routes the
-same fused pass through the kernel's plain PyTorch version, and the default
-takes the inline torch lookup; both give the same counters bit for bit.
+Where the replay runs follows the state's device, with no fallback:
+
+* on a CUDA device ``_advance`` replays the whole trace in ONE launch of
+  ``kernels/sim_scan``, the hand-written CUDA kernel, which runs this
+  module's step per request with the fused FTS lookup inlined
+  (``fts_lookup_warp``), whatever ``StaticConfig.fts_kernel`` says;
+* on the CPU it runs the eager loop (``_advance_eager``), one ``step`` per
+  request: the kernel's plain version.  There ``fts_kernel=True`` routes
+  the tag compare + victim argmin through ``kernels/fts_lookup``'s plain
+  version and the default takes the inline torch lookup; both give the
+  same counters bit for bit.
+
+``_advance_eager`` also runs on a CUDA device (each cached step then
+launches the ``fts_lookup`` kernel): ``chip_smoke.py`` and the ``cuda``
+tests hold the replay kernel against it.  A step reads nothing back to the
+host — branches are ``torch.where`` — so on a CUDA device the loop only
+enqueues work.
 
 Not ported yet (ROADMAP.md, Queue 1): the telemetry windows
 (``static.telemetry > 0``) and the ``dense`` reference body, both of which
@@ -42,6 +50,7 @@ from repro_torch.core.timing import (DDR4, GEOM, DRAMGeometry, DRAMTimings,
                                      MechConfig, MechParams, StaticConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fts_lookup.ops import fts_lookup_op
+from repro_torch.kernels.sim_scan.sim_scan import sim_scan
 
 I32 = torch.int32
 
@@ -403,6 +412,15 @@ def make_decision_fn(static: StaticConfig, geom: DRAMGeometry = GEOM):
     return decide
 
 
+def _check_ported(static: StaticConfig, variant: str):
+    if variant != "fused":
+        raise ValueError(f"scan variant {variant!r} is not ported to "
+                         "repro_torch; only 'fused' is (see ROADMAP.md)")
+    if static.telemetry:
+        raise ValueError("telemetry windows are not ported to repro_torch "
+                         "yet (see ROADMAP.md, Queue 1); set telemetry=0")
+
+
 def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
               variant: str = "fused"):
     """Build the step function for one static structure.
@@ -414,12 +432,7 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
 
     Only the ``fused`` body is ported; ``dense`` and telemetry windows
     raise ``ValueError`` (ROADMAP.md, Queue 1)."""
-    if variant != "fused":
-        raise ValueError(f"scan variant {variant!r} is not ported to "
-                         "repro_torch; only 'fused' is (see ROADMAP.md)")
-    if static.telemetry:
-        raise ValueError("telemetry windows are not ported to repro_torch "
-                         "yet (see ROADMAP.md, Queue 1); set telemetry=0")
+    _check_ported(static, variant)
     decide = make_decision_fn(static, geom)
     max_slots = static.max_slots if static.has_cache else 1
     max_segs = static.max_segs_per_row if static.has_cache else 1
@@ -537,25 +550,47 @@ def _check_state(state: SimState, lanes: int):
                          f"batch need {lanes}")
 
 
-def _advance(trace: Trace, static: StaticConfig, params: MechParams,
-             state: SimState, variant: str, device) -> SimState:
-    """Clone ``state`` to ``device`` and run every request of ``trace``
-    (leaves (T,)/(C, T)) through the step, over ``P x C`` lanes."""
-    dev = resolve_device(device)
+def _lay_out(trace: Trace, params: MechParams, state: SimState, dev):
+    """The trace and params in lane layout on ``dev`` and a clone of
+    ``state`` there, over ``P x C`` lanes."""
     C = 1 if np.ndim(trace.t_issue) == 1 else int(trace.t_issue.shape[0])
     P = _n_params(params) or 1
     _check_state(state, P * C)
-    step = make_step(static, variant=variant)
     tr = _lane_trace(trace, P, dev)
     lp = _lane_params(params, C, dev)
     bank = BankState(*[x.to(dev).clone() if isinstance(x, torch.Tensor)
                        else fts_lib.FTS(*[y.to(dev).clone() for y in x])
                        for x in state.bank])
     cnt = Counters(*[x.to(dev).clone() for x in state.cnt])
+    return tr, lp, bank, cnt
+
+
+def _advance_eager(trace: Trace, static: StaticConfig, params: MechParams,
+                   state: SimState, variant: str = "fused",
+                   device=None) -> SimState:
+    """Clone ``state`` to ``device`` and run every request of ``trace``
+    (leaves (T,)/(C, T)) through the eager step, one request at a time:
+    the CPU path, and the replay kernel's plain version on the card."""
+    dev = resolve_device(device)
+    step = make_step(static, variant=variant)
+    tr, lp, bank, cnt = _lay_out(trace, params, state, dev)
     carry = (bank, cnt)
     for t in range(tr.t_issue.shape[0]):
         carry = step(lp, carry, Trace(*(f[t] for f in tr)))
     return SimState(*carry)
+
+
+def _advance(trace: Trace, static: StaticConfig, params: MechParams,
+             state: SimState, variant: str, device) -> SimState:
+    """Clone ``state`` to ``device`` and replay ``trace`` over it: one
+    ``sim_scan`` launch on a CUDA device, the eager loop on the CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return _advance_eager(trace, static, params, state, variant, dev)
+    _check_ported(static, variant)
+    tr, lp, bank, cnt = _lay_out(trace, params, state, dev)
+    sim_scan(tr, lp, bank, cnt, static, GEOM)
+    return SimState(bank, cnt)
 
 
 def sim_init(static: StaticConfig, geom: DRAMGeometry = GEOM,

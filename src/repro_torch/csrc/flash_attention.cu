@@ -64,6 +64,11 @@
 // would miss the 2e-5 tolerance): 4 warps, a 32-query tile (8 rows per
 // warp), 32-key tiles, one key per lane for the scores and D/32 columns
 // per lane for P V.
+// Head dims: 16, 32, 64, 128 and 192 are instantiated; the wrapper
+// zero-pads q, k and v to the next of them and passes the true D^-0.5,
+// which is exact (zero columns add nothing to q . k, and the output's
+// padded columns are sliced off).  D = 192 (three 64-column atoms) runs
+// 64-key tiles, so that Q and the K/V ring fit in shared memory.
 //
 // Build (plain C interface, loaded with ctypes; the tensor-map encoder is
 // fetched from the driver at run time, so libcuda is not linked):
@@ -131,7 +136,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 // bf16 path: TMA, mbarriers, wgmma
 
 constexpr int kBQ = 128;             // queries per block (64 per consumer)
-constexpr int kBK = 128;             // keys per tile
 constexpr int kStages = 2;           // K/V tiles in flight
 constexpr int kConsumers = 2;        // consumer warpgroups
 constexpr int kTmaThreads = 128 * (kConsumers + 1);   // + the producer's
@@ -139,9 +143,14 @@ constexpr int kTmaThreads = 128 * (kConsumers + 1);   // + the producer's
 // Shared memory of one block for head dim D.  A tile of R rows is stored
 // as D / kCols column blocks ("atoms") of R rows x kSpan bytes, each written
 // by one TMA copy with the kSpan-byte swizzle (128 B for D >= 64, else D*2
-// bytes) that the wgmma descriptors read back.
+// bytes) that the wgmma descriptors read back.  Key tiles hold 128 keys up
+// to D = 128 and 64 at D = 192: there the Q tile (48 KB) and a 2-stage
+// ring of 128-key K/V tiles (192 KB) would pass the 227 KB a block may
+// have, and 64-key tiles (96 KB) leave the consumers 96 f32 of O and 32
+// of S a thread.
 template <int D>
 struct Smem {
+  static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per tile
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kSpan = 2 * kCols;
   static constexpr int kAtoms = D / kCols;
@@ -312,6 +321,28 @@ __device__ __forceinline__ void wgmma_ss_n128_first(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// d (64 x 64, f32) (+)= a (64 x 16) * b (64 x 16)^T, both K-major in shared
+// memory; `accumulate` 0 writes d without reading it (the first k-step)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += a (64 x 16, registers) * b (16 x 64, shared
 // memory, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
@@ -417,6 +448,7 @@ __device__ __forceinline__ void wgmma_wait() {
 template <int D>
 struct Frags {
   static constexpr int kCols = Smem<D>::kCols;
+  static constexpr int kBK = Smem<D>::kBK;
   float o[D / kCols][kCols / 2];   // output accumulator, column atoms
   float s[kBK / 2];                // scores, then exp2(s - max)
   uint32_t ph[kBK / 16][4];        // P, high bf16 parts, per 16-key step
@@ -425,6 +457,7 @@ struct Frags {
 
 template <int D>
 __device__ __forceinline__ void fence_pv(Frags<D>& f) {
+  constexpr int kBK = Smem<D>::kBK;
 #pragma unroll
   for (int a = 0; a < D / Frags<D>::kCols; ++a)
 #pragma unroll
@@ -449,11 +482,16 @@ __device__ __forceinline__ void issue_qk(Frags<D>& f, uint32_t q_c,
     const int a = kk * 16 / L::kCols;
     const uint32_t off = (kk * 16 % L::kCols) * 2;
     const uint64_t dq = smem_desc<L::kSpan>(q_c + a * kBQ * L::kSpan + off);
-    const uint64_t dk = smem_desc<L::kSpan>(k_t + a * kBK * L::kSpan + off);
-    if (kk == 0) {
-      wgmma_ss_n128_first(f.s, dq, dk);
+    const uint64_t dk =
+        smem_desc<L::kSpan>(k_t + a * L::kBK * L::kSpan + off);
+    if constexpr (L::kBK == 128) {
+      if (kk == 0) {
+        wgmma_ss_n128_first(f.s, dq, dk);
+      } else {
+        wgmma_ss_n128(f.s, dq, dk);
+      }
     } else {
-      wgmma_ss_n128(f.s, dq, dk);
+      wgmma_ss_n64(f.s, dq, dk, kk != 0);
     }
   }
 }
@@ -463,6 +501,7 @@ __device__ __forceinline__ void issue_qk(Frags<D>& f, uint32_t q_c,
 template <int D>
 __device__ __forceinline__ void issue_pv(Frags<D>& f, uint32_t v_t) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
@@ -487,6 +526,7 @@ __device__ __forceinline__ void softmax_tile(Frags<D>& f, float (&m)[2],
                                              const int (&row)[2], int tig,
                                              int k0, bool edge,
                                              float scale2) {
+  constexpr int kBK = Smem<D>::kBK;
   float mx[2];
   if (edge) {
     mx[0] = m[0];
@@ -536,6 +576,7 @@ __device__ __forceinline__ void softmax_tile(Frags<D>& f, float (&m)[2],
 // 2 kk + 1 of S, in the register order of the A operand
 template <int D>
 __device__ __forceinline__ void to_fragments(Frags<D>& f) {
+  constexpr int kBK = Smem<D>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
@@ -555,6 +596,7 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, Problem p) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK;
   constexpr int kCols = L::kCols;
   constexpr int kSpan = L::kSpan;
   extern __shared__ unsigned char smem_raw[];
@@ -717,13 +759,15 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int kSimtBQ = 32;   // queries per block (8 per warp)
 constexpr int kSimtBK = 32;   // keys per tile (one per lane)
 constexpr int kRowsPerWarp = kSimtBQ / (kThreads / kWarp);
-constexpr int kMaxCols = 4;   // D / 32 columns per lane, D <= 128
+constexpr int kSimtMaxD = 192;
 
 int simt_smem_bytes(int D) {
   return 4 * (kSimtBQ * D + kSimtBK * (D + 1) + kSimtBK * D +
               kSimtBQ * kSimtBK);
 }
 
+// kMaxCols: columns of the output per lane, D <= 32 * kMaxCols
+template <int kMaxCols>
 __global__ void __launch_bounds__(kThreads)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
@@ -892,8 +936,8 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
   // captures them with the launch
   CUtensorMap tq, tk, tv;
   if (!make_map<D>(encode, &tq, q, p.B, p.S, p.H, kBQ) ||
-      !make_map<D>(encode, &tk, k, p.B, p.S, p.Hkv, kBK) ||
-      !make_map<D>(encode, &tv, v, p.B, p.S, p.Hkv, kBK))
+      !make_map<D>(encode, &tk, k, p.B, p.S, p.Hkv, Smem<D>::kBK) ||
+      !make_map<D>(encode, &tv, v, p.B, p.S, p.Hkv, Smem<D>::kBK))
     return cudaErrorInvalidValue;
   // above 48 KB of shared memory; the attribute belongs to the current
   // device's context, so it is set on every launch (it costs ~1 us)
@@ -908,14 +952,16 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v,
 }
 
 
+template <int kMaxCols>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         void* out, const Problem& p, int D, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(   // per device, as above
-      flash_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      simt_smem_bytes(128));
+      flash_simt_kernel<kMaxCols>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      simt_smem_bytes(32 * kMaxCols));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + kSimtBQ - 1) / kSimtBQ, p.H, p.B);
-  flash_simt_kernel<<<grid, kThreads, simt_smem_bytes(D), s>>>(
+  flash_simt_kernel<kMaxCols><<<grid, kThreads, simt_smem_bytes(D), s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), p, D);
   return cudaGetLastError();
@@ -924,7 +970,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t passed as a pointer).  `dtype` is 0
-// for f32 and 1 for bf16; D must be 16, 32, 64 or 128; `causal` is 0 or 1,
+// for f32 and 1 for bf16; D must be 16, 32, 64, 128 or 192 (the wrapper
+// zero-pads any other D up to one of these); `causal` is 0 or 1,
 // `window` 0 (none) or the window length.  Returns the launch's
 // cudaGetLastError(): non-zero means the launch was refused; 22
 // (cudaErrorInvalidValue) for a shape it does not take.
@@ -935,19 +982,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || window < 0 || B > 65535 || H > 65535 ||
-      (D != 16 && D != 32 && D != 64 && D != 128))
+      (D != 16 && D != 32 && D != 64 && D != 128 && D != 192))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{B, S, H, Hkv, causal ? 1 : 0, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_simt(q, k, v, out, p, D, s);
+    err = D <= 128 ? launch_simt<4>(q, k, v, out, p, D, s)
+                   : launch_simt<kSimtMaxD / kWarp>(q, k, v, out, p, D, s);
   } else if (dtype == 1) {
     switch (D) {
       case 16: err = launch_tma<16>(q, k, v, out, p, s); break;
       case 32: err = launch_tma<32>(q, k, v, out, p, s); break;
       case 64: err = launch_tma<64>(q, k, v, out, p, s); break;
       case 128: err = launch_tma<128>(q, k, v, out, p, s); break;
+      case 192: err = launch_tma<192>(q, k, v, out, p, s); break;
     }
   }
   return static_cast<int>(err);

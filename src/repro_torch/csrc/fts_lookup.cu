@@ -22,9 +22,10 @@
 // block; each warp walks its two S-wide rows with coalesced 16-byte loads
 // (int4) over the aligned prefix and scalar loads over the tail, keeps
 // per-thread running minima in registers, and reduces them with warp
-// shuffles; thread 0 of the warp writes the three ints.  Removing the
-// launch latency is the job of the later fused whole-step scan kernel,
-// which will inline fts_lookup_warp() below.
+// shuffles (fts_lookup_warp() in fts_lookup.cuh); thread 0 of the warp
+// writes the three ints.  On the simulator's main path the replay kernel
+// (sim_scan.cu) inlines the same fts_lookup_warp() into every step and
+// this launch is gone; this kernel stays for the eager step loop.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -33,68 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fts_lookup.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kIntMax = 0x7fffffff;
-constexpr int kWarp = 32;
+constexpr int kWarp = fts::kWarp;
 constexpr int kLanesPerBlock = 8;  // warps per block, one simulator lane each
-
-struct Best {
-  int hit_slot;  // smallest matching index (S when none)
-  int val;       // masked score of the current candidate
-  int idx;       // index of the current candidate
-};
-
-__device__ __forceinline__ void visit(Best& b, int i, int tag, int score,
-                                      int seg, int limit) {
-  if (tag == seg && i < b.hit_slot) b.hit_slot = i;
-  const int v = i < limit ? score : kBig;
-  if (v < b.val || (v == b.val && i < b.idx)) {
-    b.val = v;
-    b.idx = i;
-  }
-}
-
-// Whole-warp lookup over one row of S entries.  Every thread of the warp
-// returns the same result.
-__device__ __forceinline__ Best fts_lookup_warp(const int32_t* __restrict__ tags,
-                                                const int32_t* __restrict__ score,
-                                                int S, int seg, int limit) {
-  const int t = threadIdx.x & (kWarp - 1);
-  Best b{S, kIntMax, kIntMax};
-  int n4 = 0;
-  if ((reinterpret_cast<uintptr_t>(tags) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(score) & 15) == 0) {
-    n4 = S >> 2;
-    const int4* t4 = reinterpret_cast<const int4*>(tags);
-    const int4* s4 = reinterpret_cast<const int4*>(score);
-    for (int k = t; k < n4; k += kWarp) {
-      const int4 tv = __ldg(t4 + k);
-      const int4 sv = __ldg(s4 + k);
-      const int i = k << 2;
-      visit(b, i + 0, tv.x, sv.x, seg, limit);
-      visit(b, i + 1, tv.y, sv.y, seg, limit);
-      visit(b, i + 2, tv.z, sv.z, seg, limit);
-      visit(b, i + 3, tv.w, sv.w, seg, limit);
-    }
-  }
-  for (int i = (n4 << 2) + t; i < S; i += kWarp) {
-    visit(b, i, __ldg(tags + i), __ldg(score + i), seg, limit);
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const int hs = __shfl_xor_sync(0xffffffffu, b.hit_slot, off);
-    const int v = __shfl_xor_sync(0xffffffffu, b.val, off);
-    const int ix = __shfl_xor_sync(0xffffffffu, b.idx, off);
-    if (hs < b.hit_slot) b.hit_slot = hs;
-    if (v < b.val || (v == b.val && ix < b.idx)) {
-      b.val = v;
-      b.idx = ix;
-    }
-  }
-  return b;
-}
 
 __global__ void __launch_bounds__(kWarp * kLanesPerBlock)
 fts_lookup_kernel(const int32_t* __restrict__ tags,
@@ -111,8 +56,8 @@ fts_lookup_kernel(const int32_t* __restrict__ tags,
   // nearest row instead of faulting
   b = b < 0 ? 0 : (b >= n_banks ? n_banks - 1 : b);
   const size_t row = (static_cast<size_t>(lane) * n_banks + b) * S;
-  const Best r = fts_lookup_warp(tags + row, score + row, S, seg[lane],
-                                 limit[lane]);
+  const fts::Best r = fts::fts_lookup_warp<true>(tags + row, score + row, S,
+                                                 seg[lane], limit[lane]);
   if ((threadIdx.x & (kWarp - 1)) == 0) {
     out[3 * lane + 0] = r.hit_slot < S ? 1 : 0;
     out[3 * lane + 1] = r.hit_slot;

@@ -1,0 +1,50 @@
+// Host build of the simulator step (sim_step.cuh) with a scalar FTS
+// lookup: the same per-request code as the replay kernel (sim_scan.cu),
+// compiled by a host C++ compiler so that the CPU tests can replay it
+// bitwise against the eager loop.  Not used by the port itself.
+//
+// Build (plain C interface, loaded with ctypes):
+//   g++ -std=c++17 -O2 -shared -fPIC -o libsim_host.so sim_host.cpp
+
+#include <stdint.h>
+
+#include "sim_step.cuh"
+
+namespace {
+
+// fts_lookup_warp() one entry at a time: the first slot whose tag is seg
+// (S if none) and the first minimum of (s < limit ? score[s] : BIG).
+sim::Lookup scalar_lookup(const int32_t* tags, const int32_t* score, int S,
+                          int32_t seg, int32_t limit) {
+  sim::Lookup lk{S, 0};
+  int32_t best = 0;
+  for (int s = 0; s < S; ++s) {
+    if (tags[s] == seg && s < lk.hit_slot) lk.hit_slot = s;
+    const int32_t v = s < limit ? score[s] : sim::kBig;
+    if (s == 0 || v < best) {
+      best = v;
+      lk.cand = s;
+    }
+  }
+  return lk;
+}
+
+}  // namespace
+
+// Replay every step of every lane, in place, on the host: the contract of
+// sim_scan_launch without a stream.
+extern "C" int sim_replay_host(void* const* ptrs, const int* dims) {
+  const sim::Args a = sim::make_args(ptrs, dims);
+  for (int n = 0; n < a.d.N; ++n) {
+    for (int t = 0; t < a.d.T; ++t) {
+      const sim::Req r = sim::request(a, n, t);
+      sim::Lookup lk{a.d.S, 0};
+      if (sim::has_cache(a.d))
+        lk = scalar_lookup(r.tags_row, r.score_row, a.d.S, r.seg, r.limit);
+      sim::Step s;
+      sim::decide(a, n, r, lk, s);
+      sim::commit(a, n, r, s, t == 0);
+    }
+  }
+  return 0;
+}

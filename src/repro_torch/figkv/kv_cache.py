@@ -10,8 +10,10 @@ Mapping (paper -> here):
                                     (``kernels/figaro_reloc``)
   FTS {tag,valid,dirty,benefit}  -> identical structure (``core/fts``),
                                     one store per sequence (lane axis B)
-  insert-any-miss                -> top-scoring selected-but-uncached segment
-                                    is relocated each step
+  insert-any-miss                -> top-scoring selected-but-uncached
+                                    COMPLETE segment is relocated each step
+                                    (the JAX package also relocates the
+                                    dead ids that pad a short selection)
   RowBenefit row eviction        -> identical
 
 Decode attends over (selected hot segments ∪ recent window) through
@@ -107,19 +109,25 @@ def _select_segments(q: torch.Tensor, seg_key: torch.Tensor, n_live: int,
 
 
 def _fts_step(fts: fts_lib.FTS, segs: torch.Tensor, step: torch.Tensor,
-              fig: FIGKVConfig):
+              fig: FIGKVConfig, n_live: int):
     """Per-sequence FTS transaction for the selected segments ``segs (B,
-    n_sel)``: touch hits; insert the best-scoring miss (RowBenefit
+    n_sel)``: touch hits; insert the best-scoring live miss (RowBenefit
     eviction).  Returns (fts, slot_per_seg, inserted_seg, inserted_slot).
+
+    Only ids below ``n_live`` (complete segments) are inserted.  The
+    selection pads with dead ids when fewer than ``n_sel`` segments are
+    complete; the JAX package inserts those too (the active segment, or
+    one not written yet), and their copies never refresh.
 
     The n_sel touches of a sequence are one vectorised update: top-k ids
     are distinct, and so are their slots."""
     hits, slots = fts_lib.lookup(fts, segs)
     fts = fts_lib.touch(fts, slots, False, step, (1 << fig.benefit_bits) - 1,
                         fig.segs_per_row, count=hits.to(torch.int32))
-    # insert-any-miss: the top-scoring miss is relocated this step
-    miss_order = torch.argmax((~hits).to(torch.int32), dim=1)
-    any_miss = ~hits.all(dim=1)
+    # insert-any-miss: the top-scoring live miss is relocated this step
+    miss = ~hits & (segs < n_live)
+    miss_order = torch.argmax(miss.to(torch.int32), dim=1)
+    any_miss = miss.any(dim=1)
     ins_seg = torch.where(any_miss, segs.gather(1, miss_order[:, None])[:, 0],
                           -1)
     res = fts_lib.insert(fts, ins_seg, False, step, policy=fig.policy,
@@ -163,7 +171,8 @@ def figkv_decode_step(state: FigKVState, q: torch.Tensor,
     # -- segment selection + FTS transaction, batched over sequences -------
     sel = _select_segments(q, seg_key, n_live, n_sel)          # (B, n_sel)
     step = torch.full((B,), pos, dtype=torch.int32, device=q.device)
-    fts, slots, ins_seg, ins_slot = _fts_step(state.fts, sel, step, fig)
+    fts, slots, ins_seg, ins_slot = _fts_step(state.fts, sel, step, fig,
+                                              n_live)
 
     # -- RELOC: move the inserted segment into the fast pool.  The segment
     #    views leave out a ragged tail: Smax need not be a multiple of st,

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root, at
-first use (the hash of the source keys the file, so an edited source
-rebuilds), with nvcc's output (ptxas's report) beside it in
-``lib<name>-<hash>.log``; ``build_all`` starts one ``nvcc`` per source,
-all at once.
+first use (the hash of the source, of every ``csrc/*.cuh`` header and of
+the flags keys the file, so an edited source or header rebuilds), with
+nvcc's output (ptxas's report) beside it in ``lib<name>-<hash>.log``;
+``build_all`` starts one ``nvcc`` per source, all at once.
+``build_host`` compiles a ``csrc/<name>.cpp`` with the host C++ compiler
+the same way (the CPU tests' build of the simulator step).
 Nothing here runs at import time: the CPU tests import every module on
 machines without ``nvcc``.
 """
@@ -25,6 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+HOST_DIR = BUILD_DIR.parent / "host"
 
 # name -> loaded library; one load per process and source version
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -43,10 +47,62 @@ def _nvcc() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
+def _key(source: Path, flags: Sequence[str]) -> str:
+    """Hash of a source, every header in ``csrc/`` (any source may include
+    any of them) and the compiler flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:12]
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return BUILD_DIR / f"lib{name}-{_key(CSRC / f'{name}.cu', NVCC_FLAGS)}.so"
+
+
+def _compile(jobs) -> None:
+    """Run ``(name, library path, command without -o)`` jobs at once; each
+    library and its log are written to temporary names and renamed into
+    place, the log first.  Raises ``RuntimeError`` with the compiler's
+    output if any fails."""
+    procs = []
+    for name, path, cmd in jobs:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        procs.append((name, path, tmp, time.perf_counter(), cmd[0],
+                      subprocess.Popen([*cmd, "-o", str(tmp)],
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, path, tmp, t0, compiler, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"kernel build of {name} failed ({compiler} exit "
+                          f"{proc.returncode}):\n{out}")
+            continue
+        tmp_log = tmp.with_suffix(f".logtmp{os.getpid()}")
+        tmp_log.write_text(out)
+        os.replace(tmp_log, path.with_suffix(".log"))
+        os.replace(tmp, path)
+        BUILD_LOG[name] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler (``g++`` or
+    ``c++``) into ``build/host/lib<name>-<hash>.so`` unless built; its
+    path.  Raises ``RuntimeError`` when there is no compiler."""
+    src = CSRC / f"{name}.cpp"
+    path = HOST_DIR / f"lib{name}-{_key(src, HOST_FLAGS)}.so"
+    if not (path.exists() and path.with_suffix(".log").exists()):
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler to build {name}")
+        _compile([(name, path, [cxx, *HOST_FLAGS, str(src)])])
+    return path
 
 
 def build_all(names: Sequence[str]) -> List[Path]:
@@ -62,29 +118,9 @@ def build_all(names: Sequence[str]) -> List[Path]:
     todo = [(n, p) for n, p in zip(names, paths)
             if not (p.exists() and p.with_suffix(".log").exists())]
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
-    procs = []
-    for name, path in todo:
-        tmp = path.with_suffix(f".tmp{os.getpid()}")
-        procs.append((name, path, tmp, time.perf_counter(), subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, path, tmp, t0, proc in procs:
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"kernel build of {name} failed (nvcc exit "
-                          f"{proc.returncode}):\n{out}")
-            continue
-        tmp_log = tmp.with_suffix(f".logtmp{os.getpid()}")
-        tmp_log.write_text(out)
-        os.replace(tmp_log, path.with_suffix(".log"))
-        os.replace(tmp, path)
-        BUILD_LOG[name] = (time.perf_counter() - t0, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+        _compile([(n, p, [nvcc, *NVCC_FLAGS, str(CSRC / f"{n}.cu")])
+                  for n, p in todo])
     return paths
 
 

@@ -6,7 +6,9 @@ Replaces the Pallas TPU kernel
 One launch computes a whole prefill attention in the model's layout:
 q (B, S, H, D) over k/v (B, S, Hkv, D), query head ``h`` reading KV head
 ``h // (H // Hkv)``.  bf16 runs on the tensor cores (TMA loads, wgmma),
-f32 on the CUDA cores.
+f32 on the CUDA cores.  The source instantiates the head dims of
+``HEAD_DIMS``; any other D up to the largest is zero-padded to the next
+one (``padded``) with the true ``D ** -0.5`` passed, which is exact.
 
 The library is built and loaded at the first launch, never at import, so
 this module imports on machines without CUDA or ``nvcc``.
@@ -17,11 +19,12 @@ import ctypes
 import re
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 KERNEL = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128)     # the D the CUDA source instantiates
+HEAD_DIMS = (16, 32, 64, 128, 192)   # the D the CUDA source instantiates
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,12 +56,39 @@ def p_mode() -> str:
     return {1: "bf16", 2: "split"}[body.count("wgmma_rs<")]
 
 
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim that D pads to; raises ``ValueError``
+    past the largest."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention: head_dim {d} not supported; the "
+                     f"kernel takes D up to {HEAD_DIMS[-1]}")
+
+
+def padded(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``attend(q, k, v, causal=, window=, scale=)`` at the padded head dim:
+    q, k, v zero-padded to ``padded_head_dim(D)`` columns, the true
+    ``D ** -0.5`` as the scale, the output's first D columns.  Exact: the
+    zero columns add nothing to the scores, and the output's padded columns
+    are P times zeros."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp == d:
+        return attend(q, k, v, causal=causal, window=window, scale=d ** -0.5)
+    q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
+    out = attend(q, k, v, causal=causal, window=window, scale=d ** -0.5)
+    return out[..., :d].contiguous()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, S, H, D), k/v (B, S, Hkv, D) with
     ``H % Hkv == 0``, all contiguous and 16-byte aligned on one CUDA device,
-    of one dtype (f32 or bf16), D in ``HEAD_DIMS`` -> (B, S, H, D) in that
-    dtype (contract of ``ref.flash_attention_ref``).
+    of one dtype (f32 or bf16), D at most ``HEAD_DIMS[-1]`` -> (B, S, H, D)
+    in that dtype (contract of ``ref.flash_attention_ref``).  A D outside
+    ``HEAD_DIMS`` runs zero-padded (``padded``).
 
     Runs on the current stream without synchronising; raises if the launch
     is refused."""
@@ -72,9 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or h % hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not supported; the "
-                         f"kernel takes D in {HEAD_DIMS}")
+    padded_head_dim(d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype, f32 "
                          f"or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -88,13 +116,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and "
                              f"16-byte aligned on {q.device}")
-    out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return torch.empty_like(q)
+    return padded(_launch, q, k, v, causal=causal, window=window)
+
+
+def _launch(q, k, v, *, causal, window, scale):
+    """One launch at an instantiated head dim, scores scaled by ``scale``."""
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        hkv, d, int(bool(causal)), int(window), d ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        k.shape[2], d, int(bool(causal)), int(window), scale,
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -125,10 +125,18 @@ def init_kv_cache(batch: int, s_max: int, hkv: int, d: int, quant: bool,
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: int) -> KVCache:
     """Write k/v (B, S_new, Hkv, D) at offset ``pos``, in place in the
-    caller's cache tensors; the returned cache has the new length."""
+    caller's cache tensors; the returned cache has the new length.
+
+    Raises ``ValueError`` when the write does not fit the cache: a slice
+    past ``s_max`` would be empty, and the token would be dropped while the
+    length still grew."""
     if cache.k_scale is not None:
         raise NotImplementedError("the int8 KV cache is not ported yet")
     s_new = k_new.shape[1]
+    s_max = cache.k.shape[1]
+    if pos < 0 or pos + s_new > s_max:
+        raise ValueError(f"cache_update: positions {pos}..{pos + s_new - 1} "
+                         f"do not fit the {s_max}-token KV cache")
     cache.k[:, pos:pos + s_new] = k_new
     cache.v[:, pos:pos + s_new] = v_new
     return cache._replace(length=pos + s_new)

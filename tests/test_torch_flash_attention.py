@@ -145,9 +145,9 @@ def test_dispatch_cpu_uses_plain_version():
 @pytest.mark.parametrize("bad", ["head_dim", "heads", "dtype"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     """The wrapper raises ValueError before it builds or launches anything:
-    a head_dim outside (16, 32, 64, 128), H not a multiple of Hkv, mixed
-    dtypes."""
-    shapes = {"head_dim": ((1, 8, 2, 80), (1, 8, 1, 80)),
+    a head_dim above the largest instantiated one (192), H not a multiple
+    of Hkv, mixed dtypes."""
+    shapes = {"head_dim": ((1, 8, 2, 200), (1, 8, 1, 200)),
               "heads": ((1, 8, 3, 16), (1, 8, 2, 16)),
               "dtype": ((1, 8, 2, 16), (1, 8, 1, 16))}[bad]
     q, k, v = [torch.zeros(s) for s in (shapes[0], shapes[1], shapes[1])]
@@ -155,6 +155,32 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = k.to(torch.bfloat16)
     with pytest.raises(ValueError, match=bad.replace("heads", "do not fit")):
         port_kernel.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,dp", [(8, 16), (20, 32), (160, 192), (64, 64)])
+def test_padded_head_dim_equals_plain(D, dp, dtype):
+    """The wrapper's padding (q, k, v zero-padded to the next instantiated
+    head dim, the true D^-0.5, the first D output columns) through the
+    plain version equals the plain version at D: StableLM-12B's 160, its
+    reduced 20 and the reduced DeepSeek-67B's 8."""
+    assert port_kernel.padded_head_dim(D) == dp
+    q, k, v = [torch.from_numpy(x).to(dtype) for x in
+               _case((2, 40, 4, D), (2, 40, 2, D), jnp.float32, seed=D)]
+    widths = []
+
+    def attend(q, k, v, **kw):
+        widths.append(q.shape[-1])
+        return flash_attention_ref(q, k, v, **kw)
+
+    for causal, window in ((True, 0), (False, 9)):
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        got = port_kernel.padded(attend, q, k, v, causal=causal,
+                                 window=window)
+        assert got.shape == want.shape and got.is_contiguous()
+        tol = 1e-6 if dtype == torch.float32 else 0
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    assert widths == [dp, dp]
 
 
 # The shapes of test_mha_matches_pallas_interpret, the ragged and the GQA
@@ -335,7 +361,13 @@ def cuda_device():
     (1, 257, 2, 1, 128, True, 0), (1, 203, 4, 1, 64, True, 30),
     (2, 300, 4, 4, 64, True, 1), (1, 200, 2, 1, 128, False, 1),
     (1, 500, 4, 2, 128, True, 50), (1, 500, 2, 2, 128, False, 100),
-    (2, 200, 7, 1, 16, True, 0), (2, 200, 7, 1, 32, False, 0)])
+    (2, 200, 7, 1, 16, True, 0), (2, 200, 7, 1, 32, False, 0),
+    # head dims that run zero-padded: the reduced DeepSeek-67B's 8, the
+    # reduced StableLM-12B's 20 and StableLM-12B's 160 (into the 64-key
+    # tiles of D = 192), and 192 itself at tile edges
+    (2, 100, 4, 2, 8, True, 0), (2, 77, 4, 1, 20, False, 30),
+    (2, 300, 32, 8, 160, True, 0), (1, 129, 4, 4, 160, False, 0),
+    (1, 65, 2, 1, 192, True, 0), (1, 200, 4, 2, 192, True, 50)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, B, S, H, hkv, D,
                                    causal, window):
     q, k, v = [torch.from_numpy(x).to(dtype) for x in
@@ -389,7 +421,7 @@ def test_cuda_kernel_at_the_lm_activations(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_mha_raises_for_unsupported_head_dim(cuda_device):
-    q = torch.zeros((1, 8, 2, 80), device=cuda_device)
-    k = torch.zeros((1, 8, 1, 80), device=cuda_device)
+    q = torch.zeros((1, 8, 2, 200), device=cuda_device)
+    k = torch.zeros((1, 8, 1, 200), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         mha(q, k, k)

@@ -166,9 +166,12 @@ def cuda_device():
 @pytest.mark.cuda
 def test_simulator_default_launches_lookup_kernel(cuda_device):
     """With the default config (``fts_kernel=False``) a cached replay on the
-    card launches the fts_lookup kernel once per step."""
+    card runs the lookup kernel on every step: inlined in the one sim_scan
+    launch of the replay, and as the fts_lookup kernel once per step in
+    the eager loop; both equal the CPU's counters."""
     from repro_torch.core import dram, timing
     from repro_torch.kernels.fts_lookup import fts_lookup as kernel
+    from repro_torch.kernels.sim_scan import sim_scan
     idx = np.arange(64)
     tr = dram.Trace(t_issue=(idx * 16).astype(np.int32),
                     bank=(idx % 3).astype(np.int32),
@@ -177,9 +180,17 @@ def test_simulator_default_launches_lookup_kernel(cuda_device):
                     is_write=idx % 5 == 0, core=(idx % 8).astype(np.int32))
     cfg = timing.paper_config("figcache_fast", cache_rows=2)
     assert not cfg.fts_kernel
-    before = kernel.COUNTER.launches
+    before = kernel.COUNTER.launches, sim_scan.COUNTER.launches
     got = dram.run_channel(tr, cfg, device=cuda_device)
+    assert (kernel.COUNTER.launches - before[0],
+            sim_scan.COUNTER.launches - before[1]) == (0, 1)
+    before = kernel.COUNTER.launches
+    state = dram._advance_eager(tr, cfg.static,
+                                cfg.params(device=cuda_device),
+                                dram.sim_init(cfg.static, device=cuda_device),
+                                device=cuda_device)
     assert kernel.COUNTER.launches - before == 64
     want = dram.run_channel(tr, cfg, device="cpu")
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
+    for a, b, c in zip(got, state.cnt, want):
+        assert torch.equal(a.cpu(), c)
+        assert torch.equal(b[0].cpu(), c)

@@ -96,11 +96,13 @@ def test_kernel_modules_import_without_cuda_or_nvcc(tmp_path):
             "repro_torch.kernels.figcache_decode.ops, "
             "repro_torch.kernels.flash_attention.flash_attention as f, "
             "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.sim_scan.sim_scan as s, "
             "repro_torch.figkv, repro_torch.launch.serve, "
             "repro_torch.models, repro_torch.convert, "
             "repro_torch.kernels._build as b, repro_torch.core.simulator\n"
             "assert k.COUNTER.launches == r.COUNTER.launches == "
-            "d.COUNTER.launches == f.COUNTER.launches == 0 and not b._LOADED\n"
+            "d.COUNTER.launches == f.COUNTER.launches == "
+            "s.COUNTER.launches == 0 and not b._LOADED\n"
             "assert 'jax' not in __import__('sys').modules\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,

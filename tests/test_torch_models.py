@@ -202,6 +202,26 @@ def test_int8_kv_cache_raises():
         m.init_decode(1, 8)
 
 
+def test_cache_update_past_the_end_raises():
+    """A write past ``s_max`` raises: its slice would be empty and the
+    token silently dropped while the length still grew."""
+    from repro_torch.models import attention
+    cache = attention.init_kv_cache(1, 9, 2, 4, quant=False, device="cpu")
+    kv = torch.ones(1, 1, 2, 4, dtype=torch.bfloat16)
+    cache = attention.cache_update(cache, kv, kv, 8)
+    assert cache.length == 9 and bool((cache.k[:, 8] == 1).all())
+    for pos, s_new in ((9, 1), (10, 1), (8, 2), (-1, 1)):
+        new = torch.ones(1, s_new, 2, 4, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="do not fit"):
+            attention.cache_update(cache, new, new, pos)
+    m = build_model(tconfigs.get_reduced("qwen2-7b"), device="cpu")
+    caches = m.init_decode(1, 9)
+    caches, _ = m.prefill({"tokens": torch.zeros(1, 9, dtype=torch.long)},
+                          caches)
+    with pytest.raises(ValueError, match="do not fit"):
+        m.decode_step(caches, torch.zeros(1, 1, dtype=torch.long), 9)
+
+
 # ---------------- model ----------------
 
 def _prefill_and_decode(jm, params, tm, toks):
