@@ -10,15 +10,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    latency probe beside them, one nvcc per source, all started together,
    timed;
 2. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card (fts_lookup and figaro_reloc bitwise, figcache_decode
-   within f32 2e-5 / bf16 2e-2), at the main paths' shapes and at corner
-   shapes (figcache_decode: L = 1, L below the split count, ragged and
-   long L, D from 1 to 512, groups of 1 to 12 query heads), then both
+   on the card (fts_lookup, figaro_reloc and figkv_tx bitwise,
+   figcache_decode within f32 2e-5 / bf16 2e-2), at the main paths' shapes
+   and at corner shapes (figcache_decode: L = 1, L below the split count,
+   ragged and long L, D from 1 to 512, groups of 1 to 12 query heads;
+   figkv_tx: all four policies on full, evicting stores at the figkv shape,
+   hits whose slot the same step's insert takes included), then both
    timed with CUDA events (median of 25 samples), per eager call and as
    device time (CUDA-graph replay), beside the kernel's bound and, where
    one exists, one PyTorch call computing the same; figcache_decode's
    plan at the figkv shape (splits, grid, cluster, shared memory) and its
-   device time by split count;
+   device time by split count; figkv_tx's time (its state restored before
+   each launch, the restore's own time taken off) beside its byte bound
+   (the bytes of the branch each sequence's state takes, ``tx_bytes``),
+   its chain bound (dependent round trips counted from the code,
+   FIGKV_CHAIN, at the latency probe's measured latencies) and the
+   unfused composition it replaces (the torch transaction, the repair and
+   two figaro_reloc launches, returning new FTS leaves as the step did
+   before they were updated in place);
 3. golden pins: the six FCFS fingerprints of tests/test_obs.py:108-153 on
    the card, through the replay kernel (sim_scan), through the eager step
    loop with the lookup kernel and through the eager loop with the
@@ -39,11 +48,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
 5. FIGCache-KV path: ``serve.demo_figkv`` at Qwen2-7B's full attention
    width (28 query / 4 KV heads, head_dim 128, bf16, default FIGKVConfig),
    batch 8, a 32768-token prompt and 256 decode steps; launch counts read
-   just around it; the same inputs rerun with the two kernels' plain
-   versions patched in at the figkv module's call sites, every FTS leaf and
-   pool compared bitwise, outputs within bf16 atol 2e-2; then
-   ``embed_cache_lookup`` over Qwen2-7B's embedding table, 256 steps of 64
-   Zipf-drawn tokens, every output equal to ``table[tokens]``;
+   just around it (figkv_tx and figcache_decode once a step, figaro_reloc
+   never); the same inputs rerun with the two kernels' plain versions
+   patched in at the figkv module's call sites, every FTS leaf and pool
+   compared bitwise, outputs within bf16 atol 2e-2; rerun with the unfused
+   composition (the torch transaction and two figaro_reloc launches a
+   step, the same repair, the new FTS leaves taking the old ones' place
+   without a copy), state bitwise equal again; fused and unfused
+   decode ms/step, and a profile of 16 steps of each (ms/step, device ops
+   a step, idle share) in turns; then ``embed_cache_lookup`` over
+   Qwen2-7B's embedding table, 256 steps of 64 Zipf-drawn tokens, every
+   output equal to ``table[tokens]``, figaro_reloc launches counted
+   around it;
 6. profile: device busy and idle share of the simulator's replay at its
    shapes (torch.profiler): a whole 6144-step group through the replay
    kernel, and 128 steps through the eager loop; the device ops that take
@@ -76,7 +92,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
-   loop a field apart), the nvidia-smi line, and
+   loop a field apart; figaro_reloc's are the embedding cache's, its figkv
+   launches, 0, a field apart), the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -86,6 +103,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -101,6 +119,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import dram, simulator, timing, traces  # noqa: E402
+from repro_torch.core import fts as fts_lib  # noqa: E402
 from repro_torch.figkv import embed_cache, kv_cache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.figaro_reloc import \
@@ -111,6 +130,10 @@ from repro_torch.kernels.figcache_decode import \
     figcache_decode as decode_kernel  # noqa: E402
 from repro_torch.kernels.figcache_decode.ref import \
     figcache_decode_ref  # noqa: E402
+from repro_torch.kernels.figkv_tx import figkv_tx as tx_kernel  # noqa: E402
+from repro_torch.kernels.figkv_tx import ops as tx_ops  # noqa: E402
+from repro_torch.kernels.figkv_tx import ref as tx_ref  # noqa: E402
+from repro_torch.kernels.figkv_tx.ref import figkv_tx_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -127,7 +150,7 @@ N_CHANNELS = 4
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12                        # dense tensor-core peak
 KERNELS = ("fts_lookup", "figaro_reloc", "figcache_decode",
-           "flash_attention", "sim_scan")
+           "flash_attention", "sim_scan", "figkv_tx")
 PROBES = ("latency_probe",)                     # a measurement, not a port
 # the FIGCache-KV phase: Qwen2-7B (src/repro/configs/qwen2_7b.py), its 32k
 # pretraining context (arXiv:2407.10671), 256 decode steps, batch 8
@@ -240,10 +263,42 @@ def plain_lookup_op(tags, score, bank, seg, limit):
     return out[:, 0] != 0, out[:, 1], out[:, 2]
 
 
-def plain_reloc_segments(pool, fast, src_segs, dst_slots):
-    """``ops.reloc_segments`` with the plain version on the card."""
-    reloc_ref(*segment_rows(pool, fast, src_segs, dst_slots))
-    return fast
+def plain_figkv_tx(sel, step, n_live, fts, seg_k, seg_v, fast_k, fast_v,
+                   fig):
+    """``ops.figkv_tx`` with the plain version on the card."""
+    rows = [tx_ops.as_rows(x) for x in (seg_k, seg_v, fast_k, fast_v)]
+    return figkv_tx_ref(sel, step, n_live, fts, *rows, fig)
+
+
+def unfused_tx(sel, step, n_live, fts, pool_k, pool_v, fast_k, fast_v, fig):
+    """The composition ``figkv_tx`` replaced, on (B, rows, E) rows: the
+    torch transaction (``ref.fts_step``) and the repair, then one
+    ``figaro_reloc`` launch each for K and V.  Returns the new FTS leaves,
+    as the step took them before the leaves were updated in place, and
+    (slots, ins_seg, ins_slot)."""
+    steps = torch.full((sel.shape[0],), step, dtype=torch.int32,
+                       device=sel.device)
+    new, slots, ins_seg, ins_slot = tx_ref.fts_step(fts, sel, steps, fig,
+                                                    n_live)
+    slots = tx_ref.repair_slots(slots, sel, ins_seg, ins_slot)
+    src, dst = ins_seg[:, None], ins_slot[:, None]
+    reloc_kernel.reloc(pool_k, fast_k, src, dst)
+    reloc_kernel.reloc(pool_v, fast_v, src, dst)
+    return new, (slots, ins_seg, ins_slot)
+
+
+def unfused_figkv_tx(sel, step, n_live, fts, seg_k, seg_v, fast_k, fast_v,
+                     fig):
+    """``ops.figkv_tx`` as the step ran before the fused kernel
+    (``unfused_tx``).  The state's leaves take on the new ones' storage
+    (``Tensor.set_``: no copy, no device op), as the step's returned state
+    did, so the device work is the parent's step plus the repair."""
+    rows = [tx_ops.as_rows(x) for x in (seg_k, seg_v, fast_k, fast_v)]
+    new, out = unfused_tx(sel, step, n_live, fts, *rows, fig)
+    for old, x in zip(fts, new):
+        if x is not old:
+            old.set_(x)
+    return out
 
 
 def plain_decode_attend(q, k, v, valid):
@@ -406,6 +461,287 @@ def phase_reloc(dev):
         f"relocation (2 launches, {2 * B * seg_bytes} bytes read and "
         f"written): {2 * bound * 1e3:.4f} us")
     res.update(max_abs_err=0, bound_by="bytes")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2: figkv_tx kernel vs plain
+
+# Dependent round trips of one sequence's transaction (csrc/figkv_tx.cu with
+# figkv_tx.cuh) on the figkv path (RowBenefit, a full store whose bitvector
+# still marks a slot: 7 inserts in 8), counted from the code in issue
+# order.  A floor: the launch, the two __syncthreads() and the bulk copies
+# are left out, and so is the argmin over row_sum when the bitvector runs
+# out.  The row_sum adds are atomics whose result nobody reads, and the
+# block leaves once its bulk stores have read shared memory: neither is a
+# round trip.
+#   l2    the selected id with the row of tags and valid bits (independent
+#         loads, one trip); the hit slot's benefit (touch); n_valid, then
+#         the RowBenefit row and bitvector (victim_scan branches on the
+#         first); the victim row's benefits (insert's gather);
+#   l1    the selected id reread after the barrier (insert_candidate); the
+#         victim slot's benefit (b0, after the in-row argmin);
+#   shfl  the lookup's ballot and its shuffle.
+FIGKV_CHAIN = {"l2": 5, "l1": 2, "shfl": 2}
+
+
+def tx_state(policy, dev, mixed=True, seed=0):
+    """A full, evicting FIGCache-KV tag store per sequence at the figkv
+    shape (8 sequences, 512 slots in rows of 8, Qwen2-7B's 16-token bf16
+    segments), with its fast pools, random slow pools seen through the
+    strided segment views ``kv_cache`` makes, and one step's selection (8
+    distinct ids a row: 4 hits, 4 misses).
+
+    Each store holds 512 distinct live ids, benefits 2..benefit_max (the
+    row sums theirs), LRU stamps below the step and a RowBenefit row with a
+    bitvector.  Sequences 0-3 hit the very slot the step's insert takes (a
+    benefit of 0 in the marked row, the SegmentBenefit minimum, or the
+    Random hash's slot; under LRU a touched slot is never the victim);
+    sequence 4's bitvector is exhausted (the row_sum argmin).  With
+    ``mixed``, sequence 5 hits on all 8 ids (no insert), 6 has 3 free
+    slots and 7's misses are all incomplete segments (no insert).
+    Returns (fig, fts, (seg_k, seg_v, fast_k, fast_v) as (B, rows, E),
+    sel, step, n_live)."""
+    cfg, fig, s_max, n_segs = figkv_geometry()
+    fig = dataclasses.replace(fig, policy=policy)
+    B, st, hkv, d = FIGKV_BATCH, fig.seg_tokens, cfg.n_kv_heads, cfg.hd
+    spr, S = fig.segs_per_row, fig.fast_rows * fig.segs_per_row
+    bmax = (1 << fig.benefit_bits) - 1
+    step, n_live = FIGKV_PROMPT + 100, n_segs - 8
+    rng = np.random.default_rng(seed)
+    tags = np.empty((B, S), np.int32)
+    valid = np.ones((B, S), bool)
+    benefit = rng.integers(2, bmax + 1, (B, S)).astype(np.int32)
+    last_use = rng.integers(0, step, (B, S)).astype(np.int32)
+    free_list = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    n_valid = np.full(B, S, np.int32)
+    evict_row = rng.integers(0, fig.fast_rows, B).astype(np.int32)
+    evict_mask = rng.random((B, spr)) < 0.5
+    evict_mask[:, 3] = True
+    evict_row[4] = -1
+    h = ((step * 1103515245 + 12345) & 0x7FFFFFFF) % S
+    sel = np.empty((B, FIGKV_N_SEL), np.int32)
+    for b in range(B):
+        perm = rng.permutation(n_live).astype(np.int32)
+        tags[b] = perm[:S]
+        hits = rng.choice(S, 8, replace=False)
+        forced = {"row_benefit": evict_row[b] * spr + 3,
+                  "segment_benefit": hits[0], "random": h,
+                  "lru": hits[0]}[policy]
+        if b < 4:
+            if policy in ("row_benefit", "segment_benefit"):
+                benefit[b, forced] = 0
+            hits = np.concatenate([[forced], hits[hits != forced]])
+        misses = perm[S:S + 4]
+        if mixed and b == 6:
+            free = hits[4:7]
+            free_list[b] = np.concatenate(
+                [np.setdiff1d(np.arange(S), free), free])
+            n_valid[b] = S - 3
+            valid[b, free], tags[b, free], benefit[b, free] = False, -1, 0
+            hits = hits[:4]
+        if mixed and b == 7:
+            misses = np.arange(n_live, n_segs, 2, dtype=np.int32)[:4]
+        row = tags[b, hits[:8 if mixed and b == 5 else 4]]
+        ids = np.concatenate([row, misses])[:FIGKV_N_SEL]
+        sel[b] = ids[rng.permutation(FIGKV_N_SEL)]
+    row_sum = np.zeros((B, S), np.int32)
+    row_sum[:, :S // spr] = benefit.reshape(B, S // spr, spr).sum(-1)
+    fts = fts_lib.FTS(*[torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                        for x in (tags, valid, np.zeros((B, S), bool),
+                                  benefit, last_use, evict_row, evict_mask,
+                                  np.full((B, 256), -1, np.int32),
+                                  np.zeros((B, 256), np.int32), row_sum,
+                                  free_list, n_valid)])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for _ in range(2):
+        pool = torch.randn((B, s_max, hkv, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        rows.append(pool[:, :n_segs * st].view(B, n_segs, st * hkv * d))
+    for _ in range(2):
+        rows.append(torch.randn((B, S, st * hkv * d), generator=gen,
+                                device=dev, dtype=torch.bfloat16))
+    return (fig, fts, tuple(rows), torch.from_numpy(sel).to(dev), step,
+            n_live)
+
+
+def tx_bytes(fts, sel, ins_seg, ins_slot, fig, seg_bytes) -> int:
+    """Bytes one launch must move, counted for each sequence from the
+    branch its pre-step state ``fts`` takes, each entry read once and each
+    written once: the selection read and the slot map, ``ins_seg`` and
+    ``ins_slot`` written; the tags and valid bits the lookups scan (the
+    whole row once an id misses); each hit's benefit, LRU stamp and
+    row_sum entry.  An insert adds the store's fill count, then the
+    free-stack top (and the count written), or the policy's victim search:
+    RowBenefit's marked row and the live part of its bitvector, the live
+    row_sum entries only when the bitvector is exhausted, and the victim
+    row's benefits; SegmentBenefit's benefit row; LRU's stamp row; Random
+    reads nothing.  Then the slot's leaves and row_sum entry, and the K
+    and V rows read and written."""
+    f = fts_lib.FTS(*[x.cpu().numpy() for x in fts])
+    sel, ins_seg, ins_slot = (x.cpu().numpy()
+                              for x in (sel, ins_seg, ins_slot))
+    B, S = f.tags.shape
+    spr = fig.segs_per_row
+    item = {name: x.dtype.itemsize for name, x in zip(f._fields, f)}
+    total = 0
+    for b in range(B):
+        rd, wr = {k: set() for k in item}, {k: set() for k in item}
+        hits = []
+        for seg in sel[b]:
+            m = np.flatnonzero((f.tags[b] == seg) & f.valid[b])
+            if m.size:
+                hits.append(int(m[0]))
+        n_scan = S if len(hits) < len(sel[b]) else max(hits) + 1
+        rd["tags"].update(range(n_scan))
+        rd["valid"].update(range(n_scan))
+        for s in hits:
+            rd["benefit"].add(s)
+            wr["benefit"].add(s)
+            wr["last_use"].add(s)
+            rd["row_sum"].add(s // spr)
+            wr["row_sum"].add(s // spr)
+        slot = int(ins_slot[b])
+        if ins_seg[b] >= 0:
+            nv = int(f.n_valid[b])
+            rd["n_valid"].add(0)
+            if nv < S:
+                rd["free_list"].add(min(max(nv, 0), S - 1))
+                wr["n_valid"].add(0)
+            elif fig.policy == "row_benefit":
+                rd["evict_row"].add(0)
+                wr["evict_row"].add(0)
+                rd["evict_mask"].update(range(spr))
+                wr["evict_mask"].update(range(spr))
+                if f.evict_row[b] < 0 or not f.evict_mask[b, :spr].any():
+                    rd["row_sum"].update(range(-(-S // spr)))
+                row = slot // spr
+                rd["benefit"].update(min(max(row * spr + j, 0), S - 1)
+                                     for j in range(spr))
+            elif fig.policy == "segment_benefit":
+                rd["benefit"].update(range(S))
+            elif fig.policy == "lru":
+                rd["last_use"].update(range(S))
+            rd["benefit"].add(slot)
+            for k in ("tags", "valid", "dirty", "benefit", "last_use"):
+                wr[k].add(slot)
+            rd["row_sum"].add(slot // spr)
+            wr["row_sum"].add(slot // spr)
+            total += 4 * seg_bytes
+        total += sum(item[k] * (len(rd[k]) + len(wr[k])) for k in item)
+        total += 4 * 2 * len(sel[b]) + 8
+    return total
+
+
+def flat_fts(fts):
+    """A copy of ``fts`` whose leaves are views of one byte buffer (each
+    leaf at a 16-byte offset), and the buffer: one copy restores them."""
+    offs, n = [], 0
+    for x in fts:
+        offs.append(n)
+        n += -(-x.numel() * x.element_size() // 16) * 16
+    buf = torch.empty(n, dtype=torch.uint8, device=fts.tags.device)
+    leaves = []
+    for x, o in zip(fts, offs):
+        v = buf[o:o + x.numel() * x.element_size()].view(x.dtype).view(
+            x.shape)
+        v.copy_(x)
+        leaves.append(v)
+    return fts_lib.FTS(*leaves), buf
+
+
+def phase_figkv_tx(dev, lat):
+    """figkv_tx against its plain version, bitwise, for each policy on the
+    full stores of ``tx_state``: the crafted step, then 7 more steps with
+    4 hits and 4 random live ids a row; then its device time at the figkv
+    shape beside its bounds and the unfused composition's."""
+    repaired, n_steps = {}, 8
+    for policy in tx_kernel.POLICIES:
+        fig, fts, rows, sel, step, n_live = tx_state(policy, dev)
+        plain = fts_lib.FTS(*[x.clone() for x in fts])
+        prow = rows[:2] + tuple(x.clone() for x in rows[2:])
+        rng = np.random.default_rng(1)
+        repaired[policy] = 0
+        for t in range(n_steps):
+            before = fts_lib.FTS(*[x.clone() for x in plain])
+            got = tx_kernel.figkv_tx(sel, step + t, n_live, fts, *rows, fig)
+            want = figkv_tx_ref(sel, step + t, n_live, plain, *prow, fig)
+            torch.cuda.synchronize()
+            ctx = f"figkv_tx {policy} step {t}"
+            for name, x, y in zip(("slots", "ins_seg", "ins_slot"), got,
+                                  want):
+                check(torch.equal(x, y), f"{ctx}: {name} != plain")
+            for name, x, y in zip(fts._fields, fts, plain):
+                check(torch.equal(x, y), f"{ctx}: fts.{name} != plain")
+            for i in (2, 3):
+                check(torch.equal(rows[i], prow[i]),
+                      f"{ctx}: fast pool {'KV'[i - 2]} != plain")
+            hits, slots = fts_lib.lookup(before, sel)
+            repaired[policy] += int((hits & (slots == want[2][:, None]))
+                                    .sum())
+            tags = plain.tags.cpu().numpy()
+            sel = torch.from_numpy(np.stack([np.concatenate([
+                rng.choice(tags[b][tags[b] >= 0], 4, replace=False),
+                rng.choice(np.setdiff1d(np.arange(n_live), tags[b]), 4,
+                           replace=False)]) for b in range(len(tags))]
+            ).astype(np.int32)).to(dev)
+        check((repaired[policy] > 0) == (policy != "lru"),
+              f"figkv_tx {policy}: {repaired[policy]} hits whose slot the "
+              "insert took (expected some, none under LRU)")
+        del fts, rows, plain, prow
+    log(f"[kernels] figkv_tx == plain bitwise (every FTS leaf, both fast "
+        f"pools, slot map, inserted segment and slot) on {n_steps} steps "
+        f"of full, evicting stores at the figkv shape for each policy; hits "
+        f"whose slot the same step's insert took (read from the slow pool): "
+        f"{repaired}; max_abs_err=0")
+
+    # device time at the figkv shape, every sequence inserting: the FTS
+    # leaves are restored before each launch (one copy of their flat
+    # buffer), and the restore's own time is taken off
+    fig, fts, rows, sel, step, n_live = tx_state("row_benefit", dev,
+                                                 mixed=False)
+    fts, buf = flat_fts(fts)
+    saved = buf.clone()
+    _, ins_seg, ins_slot = figkv_tx_ref(sel, step, n_live, fts, *rows, fig)
+    n_insert = int((ins_seg >= 0).sum())
+    buf.copy_(saved)
+    seg_bytes = rows[0].shape[2] * rows[0].element_size()
+    n_bytes = tx_bytes(fts, sel, ins_seg, ins_slot, fig, seg_bytes)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    chain_ns = sum(n * lat[k] for k, n in FIGKV_CHAIN.items())
+
+    def run(tx):
+        def fn():
+            buf.copy_(saved)
+            tx(sel, step, n_live, fts, *rows, fig)
+        return fn
+
+    restore = graph_ms(lambda: buf.copy_(saved))
+    res = {"restore_ms": restore,
+           "with_restore_ms": graph_ms(run(tx_kernel.figkv_tx)),
+           "plain_with_restore_ms": graph_ms(run(figkv_tx_ref)),
+           "unfused_with_restore_ms": graph_ms(run(unfused_tx)),
+           "eager_call_ms": time_ms(run(tx_kernel.figkv_tx)) - time_ms(
+               lambda: buf.copy_(saved))}
+    res.update(ms=res["with_restore_ms"] - restore,
+               plain_ms=res["plain_with_restore_ms"] - restore,
+               unfused_ms=res["unfused_with_restore_ms"] - restore,
+               bound_ms=bound, bound_by="bytes",
+               chain_bound_ms=chain_ns * 1e-6, library_ms=None,
+               max_abs_err=0, n_bytes=n_bytes, repaired=repaired)
+    log(f"[kernels] figkv_tx B={FIGKV_BATCH} S={fts.tags.shape[1]} "
+        f"n_sel={sel.shape[1]} rows of {seg_bytes} bytes, {n_insert} "
+        f"inserts (RowBenefit, full stores): device time (CUDA-graph replay, "
+        f"restore {restore * 1e3:.3f} us taken off) kernel "
+        f"{res['ms'] * 1e3:.3f} us, plain {res['plain_ms'] * 1e3:.3f} us, "
+        f"unfused composition (torch transaction + 2 figaro_reloc) "
+        f"{res['unfused_ms'] * 1e3:.3f} us; per eager call kernel "
+        f"{res['eager_call_ms'] * 1e3:.2f} us; byte bound "
+        f"{bound * 1e3:.4f} us ({n_bytes} bytes); chain bound "
+        f"{chain_ns / 1e3:.4f} us (" + " + ".join(
+            f"{n} {k}" for k, n in FIGKV_CHAIN.items()) + ")")
+    del fts, rows, buf, saved
     return res
 
 
@@ -766,13 +1102,12 @@ def probe_latencies(dev, samples=5):
     return lat
 
 
-def phase_scan_timing(dev, samples=5):
+def phase_scan_timing(dev, lat, samples=5):
     """sim_scan's device time per static group of the fig-8 grid (CUDA
     events around the launch alone, median of ``samples``, each launch on
     a fresh clone of the initial state), beside its byte bound and its
     chain bound (T x a step's dependent round trips, CHAIN, at the
-    latencies ``probe_latencies`` measures)."""
-    lat = probe_latencies(dev)
+    latencies ``lat`` that ``probe_latencies`` measured)."""
     all_wl = traces.eight_core_workloads()
     t0 = time.perf_counter()
     trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, PER_CHANNEL, 2)
@@ -833,59 +1168,83 @@ def phase_figkv(dev):
         f"D={cfg.hd} bf16, batch {FIGKV_BATCH}, prompt {FIGKV_PROMPT}, "
         f"{FIGKV_GEN} decode steps, s_max {s_max} ({n_segs} segments of "
         f"{fig.seg_tokens}), fast pool {fig.fast_rows}x{fig.segs_per_row}")
+    kernels = {"figkv_tx": tx_kernel, "figaro_reloc": reloc_kernel,
+               "figcache_decode": decode_kernel}
 
-    def run():
+    def run(**patch):
+        """demo_figkv with ``patch`` at the figkv module's call sites; its
+        result, peak device memory and the launches it made, counted from
+        0 just before it."""
         gen = torch.Generator(device=dev).manual_seed(0)
         torch.cuda.reset_peak_memory_stats(dev)
-        out = serve.demo_figkv(cfg, gen, FIGKV_PROMPT, FIGKV_GEN,
-                               FIGKV_BATCH, device=dev)
-        return out, torch.cuda.max_memory_allocated(dev)
+        for k in kernels.values():
+            k.COUNTER.launches = 0
+        with patched(kv_cache, **patch):
+            out = serve.demo_figkv(cfg, gen, FIGKV_PROMPT, FIGKV_GEN,
+                                   FIGKV_BATCH, device=dev)
+        return out, torch.cuda.max_memory_allocated(dev), {
+            n: k.COUNTER.launches for n, k in kernels.items()}
+
+    def same_state(a, b, what):
+        for name, x, y in zip(a.fts._fields, a.fts, b.fts):
+            check(torch.equal(x, y), f"figkv: FTS leaf {name} differs from "
+                  f"the {what}")
+        for name in ("fast_k", "fast_v", "pool_k", "pool_v", "seg_key"):
+            check(torch.equal(getattr(a, name), getattr(b, name)),
+                  f"figkv: {name} differs from the {what}")
 
     # warm-up at a small size: the first calls of cuBLAS, sort and friends
     serve.demo_figkv(cfg, torch.Generator(device=dev).manual_seed(2), 256, 4,
                      FIGKV_BATCH, device=dev)
-    reloc_kernel.COUNTER.launches = decode_kernel.COUNTER.launches = 0
-    kern, peak = run()
-    launches = {"figaro_reloc": reloc_kernel.COUNTER.launches,
-                "figcache_decode": decode_kernel.COUNTER.launches}
-    check(launches == {"figaro_reloc": 2 * FIGKV_GEN,
-                       "figcache_decode": FIGKV_GEN},
-          f"figkv launches {launches}, expected 2 x {FIGKV_GEN} relocations "
-          f"(K and V per step) and {FIGKV_GEN} decodes")
+    kern, peak, launches = run()
+    want = {"figkv_tx": FIGKV_GEN, "figaro_reloc": 0,
+            "figcache_decode": FIGKV_GEN}
+    check(launches == want, f"figkv launches {launches}, expected {want}: "
+          f"one transaction and one decode a step, no separate relocation")
     check(kern.out.shape == (FIGKV_GEN, FIGKV_BATCH, 1, cfg.n_heads, cfg.hd)
           and bool(torch.isfinite(kern.out.float()).all()),
           "figkv: outputs not finite or of the wrong shape")
-    with patched(kv_cache, reloc_segments=plain_reloc_segments,
-                 decode_attend=plain_decode_attend):
-        plain, _ = run()
-    check(reloc_kernel.COUNTER.launches == 2 * FIGKV_GEN
-          and decode_kernel.COUNTER.launches == FIGKV_GEN,
-          "the plain rerun launched a kernel")
-    a, b = kern.state, plain.state
-    for name, x, y in zip(a.fts._fields, a.fts, b.fts):
-        check(torch.equal(x, y), f"figkv: FTS leaf {name} differs from the "
-              "plain rerun")
-    for name in ("fast_k", "fast_v", "pool_k", "pool_v", "seg_key"):
-        check(torch.equal(getattr(a, name), getattr(b, name)),
-              f"figkv: {name} differs from the plain rerun")
+    plain, _, plain_launches = run(figkv_tx=plain_figkv_tx,
+                                   decode_attend=plain_decode_attend)
+    check(not any(plain_launches.values()),
+          f"the plain rerun launched a kernel: {plain_launches}")
+    same_state(kern.state, plain.state, "plain rerun")
     err = float((kern.out.float() - plain.out.float()).abs().max())
     check(err <= 2e-2, f"figkv: outputs differ from the plain rerun by {err}")
+    unfused, _, unfused_launches = run(figkv_tx=unfused_figkv_tx)
+    want_u = {"figkv_tx": 0, "figaro_reloc": 2 * FIGKV_GEN,
+              "figcache_decode": FIGKV_GEN}
+    check(unfused_launches == want_u, f"unfused rerun launches "
+          f"{unfused_launches}, expected {want_u}")
+    same_state(kern.state, unfused.state, "unfused rerun")
+    check(torch.equal(kern.out, unfused.out),
+          "figkv: outputs differ from the unfused rerun")
+    again, _, _ = run()
     slots = fig.fast_rows * fig.segs_per_row
-    log(f"[figkv] launches figaro_reloc={launches['figaro_reloc']} "
-        f"figcache_decode={launches['figcache_decode']}; every FTS leaf, "
-        f"both fast pools and both slow pools bitwise equal to the plain "
-        f"rerun, outputs within {err:.3g} (bf16 atol 2e-2)")
+    log(f"[figkv] launches {launches}; every FTS leaf, both fast pools and "
+        f"both slow pools bitwise equal to the plain rerun (outputs within "
+        f"{err:.3g}, bf16 atol 2e-2) and to the unfused rerun (launches "
+        f"{unfused_launches}; outputs bitwise)")
     tok_s = FIGKV_BATCH * FIGKV_GEN / kern.timings["decode_s"]
-    log(f"[figkv] kernels: prefill {kern.timings['prefill_s'] * 1e3:.1f} ms, "
-        f"decode {kern.timings['ms_per_step']:.3f} ms/step wall over "
-        f"{FIGKV_GEN} steps ({tok_s:.0f} tokens/s); plain rerun "
-        f"{plain.timings['ms_per_step']:.3f} ms/step; fast pool warm {kern.warm}/{FIGKV_BATCH * slots} slots; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
-    del kern, plain, a, b
+    log(f"[figkv] decode ms/step wall over {FIGKV_GEN} steps, in this order: "
+        f"fused {kern.timings['ms_per_step']:.3f} ({tok_s:.0f} tokens/s), "
+        f"plain {plain.timings['ms_per_step']:.3f}, unfused "
+        f"{unfused.timings['ms_per_step']:.3f}, fused "
+        f"{again.timings['ms_per_step']:.3f}; prefill "
+        f"{kern.timings['prefill_s'] * 1e3:.1f} ms; fast pool warm "
+        f"{kern.warm}/{FIGKV_BATCH * slots} slots; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    res = {"launches": launches,
+           "ms_per_step": {"fused": [kern.timings["ms_per_step"],
+                                     again.timings["ms_per_step"]],
+                           "plain": plain.timings["ms_per_step"],
+                           "unfused": unfused.timings["ms_per_step"]}}
+    del kern, plain, unfused, again
     torch.cuda.empty_cache()
 
     # where a decode step's time goes: 16 steps at the same shapes, q/k/v
-    # drawn beforehand, on a fresh 32k-token state (3 replays of 16 steps)
+    # drawn beforehand, on a fresh 32k-token state (3 replays of 16 steps),
+    # fused and unfused in turns
     steps, st = 16, fig.seg_tokens
     B, H, hkv, d = FIGKV_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -894,8 +1253,8 @@ def phase_figkv(dev):
         return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
                            device=dev)
 
-    state = kv_cache.figkv_init(B, FIGKV_PROMPT + 3 * steps + st, hkv, d, fig,
-                                device=dev)
+    state = kv_cache.figkv_init(B, FIGKV_PROMPT + 12 * steps + st, hkv, d,
+                                fig, device=dev)
     state = kv_cache.figkv_prefill(state, draw(B, FIGKV_PROMPT, hkv, d),
                                    draw(B, FIGKV_PROMPT, hkv, d))
     qkv = [(draw(B, 1, H, d), draw(B, 1, hkv, d), draw(B, 1, hkv, d))
@@ -908,7 +1267,13 @@ def phase_figkv(dev):
                 box[0], q, kn, vn, fig, n_sel=FIGKV_N_SEL, recent=2 * st)
         torch.cuda.synchronize()
 
-    profile_replay(f"figkv decode B={B} (kernels)", replay, steps)
+    profiles = {"fused": [], "unfused": []}
+    for label in ("fused", "unfused", "unfused", "fused"):
+        patch = {"figkv_tx": unfused_figkv_tx} if label == "unfused" else {}
+        with patched(kv_cache, **patch):
+            profiles[label].append(profile_replay(
+                f"figkv decode B={B} ({label})", replay, steps))
+    res["profile"] = profiles
     del state, box
     torch.cuda.empty_cache()
 
@@ -923,7 +1288,7 @@ def phase_figkv(dev):
         EMBED_STEPS, EMBED_TOKENS)
     cache = embed_cache.embed_cache_init(d, fig, device=dev)
     wrong = torch.zeros((), dtype=torch.int64, device=dev)
-    before = reloc_kernel.COUNTER.launches
+    reloc_kernel.COUNTER.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(EMBED_STEPS):
@@ -932,17 +1297,20 @@ def phase_figkv(dev):
         wrong += (out != table[toks[i]]).sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    res["embed_reloc_launches"] = reloc_kernel.COUNTER.launches
     hits, lookups = int(cache.hits), int(cache.lookups)
     check(int(wrong) == 0, f"embed cache: {int(wrong)} output elements differ "
           "from table[tokens]")
     check(hits > 0 and lookups == EMBED_STEPS * EMBED_TOKENS,
           f"embed cache: hits {hits}, lookups {lookups}")
+    check(res["embed_reloc_launches"] > 0,
+          "embed cache: figaro_reloc was not launched")
     log(f"[figkv] embed_cache_lookup: table {V}x{d} bf16, {EMBED_STEPS} steps "
         f"of {EMBED_TOKENS} Zipf({ZIPF_S}) tokens in {wall * 1e3:.1f} ms "
         f"({wall / EMBED_STEPS * 1e3:.3f} ms/step); outputs == table[tokens] "
         f"bitwise; hits {hits}/{lookups}; figaro_reloc launches "
-        f"{reloc_kernel.COUNTER.launches - before}")
-    return launches
+        f"{res['embed_reloc_launches']}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -965,7 +1333,7 @@ def profile_replay(label, replay, steps):
     if not kern:
         log(f"[profile] {label}: the profiler saw no device activity; device "
             "busy share not measured")
-        return
+        return {"ms_per_step": wall / steps * 1e3}
     busy = sum(e.time_range.elapsed_us() for e in kern) * 1e-6
     by_name = {}
     for e in kern:
@@ -980,6 +1348,9 @@ def profile_replay(label, replay, steps):
     for name, (us, c) in top:
         log(f"[profile]   {us / c:8.3f} us x {c / steps:5.1f}/step  "
             f"{name[:90]}")
+    return {"ms_per_step": wall / steps * 1e3,
+            "busy_ms_per_step": busy / steps * 1e3,
+            "ops_per_step": len(kern) / steps, "idle_share": 1 - busy / wall}
 
 
 def phase_profile(dev, eager_steps=128):
@@ -1319,13 +1690,15 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    lat = probe_latencies(dev)
     max_err, timings = phase_kernels(dev)
     reloc = phase_reloc(dev)
+    tx = phase_figkv_tx(dev, lat)
     decode = phase_decode(dev)
     phase_golden(dev)
     main_run = phase_main(dev)
-    scan = phase_scan_timing(dev)
-    figkv_launches = phase_figkv(dev)
+    scan = phase_scan_timing(dev, lat)
+    figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
     lm_launches = phase_lm(dev)
@@ -1357,17 +1730,31 @@ def main():
         "plain_ms": main_run["eager_group_s"]["figcache_fast"] * 1e3,
         "bound_ms": fast["bound_ms"], "bound_by": "bytes",
         "chain_bound_ms": fast["chain_ms"], "library_ms": None})
-    for name, res, line in (("figaro_reloc", reloc, 38),
-                            ("figcache_decode", decode, 59)):
+    # figaro_reloc's path is now the embedding cache's (the figkv step
+    # launches figkv_tx instead: its figkv launches, 0, a field apart);
+    # figkv_tx takes in the figkv step's two figaro_reloc launches
+    launches = {"figaro_reloc": figkv["embed_reloc_launches"],
+                "figcache_decode": figkv["launches"]["figcache_decode"],
+                "figkv_tx": figkv["launches"]["figkv_tx"]}
+    reloc_tpu = "src/repro/kernels/figaro_reloc/figaro_reloc.py:38"
+    for name, res, replaces in (
+            ("figaro_reloc", reloc, reloc_tpu),
+            ("figcache_decode", decode,
+             "src/repro/kernels/figcache_decode/figcache_decode.py:59"),
+            ("figkv_tx", tx, reloc_tpu)):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
-            "launches": figkv_launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"]})
+    rows[-3]["figkv_launches"] = figkv["launches"]["figaro_reloc"]
+    rows[-1].update(chain_bound_ms=tx["chain_bound_ms"],
+                    unfused_ms=tx["unfused_ms"],
+                    decode_ms_per_step=figkv["ms_per_step"],
+                    decode_profile=figkv["profile"])
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -1,7 +1,11 @@
 // Whole-warp fused FTS lookup for Hopper (sm_90a): tag compare + victim
 // argmin over one bank row of the FIGCache tag store.  Shared by the
 // standalone lookup kernel (fts_lookup.cu) and the whole-trace replay
-// kernel (sim_scan.cu), which inlines it into every cached step.
+// kernel (sim_scan.cu), which inlines it into every cached step.  The
+// FIGCache-KV transaction kernel (figkv_tx.cu) takes the argmin alone,
+// masked_argmin_warp(), which reads only the entries the mask keeps and
+// ends in sim::masked_pick (sim_step.cuh), as the host builds' scalar
+// sim::masked_argmin does.
 //
 // Device code only: include from a .cu file.
 
@@ -9,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sim_step.cuh"
 
 namespace fts {
 
@@ -93,6 +99,46 @@ __device__ __forceinline__ Best fts_lookup_warp(const int32_t* tags,
     }
   }
   return b;
+}
+
+// sim::masked_argmin over a row with the whole warp: the first index of
+// the minimum of (i < limit ? score[i] : BIG) over the n > 0 entries,
+// reading only the kept ones (16-byte loads over the aligned prefix,
+// scalar loads over the tail); every thread of the warp returns it.
+template <bool kReadOnly>
+__device__ __forceinline__ int masked_argmin_warp(const int32_t* score,
+                                                  int n, int limit) {
+  const int t = threadIdx.x & (kWarp - 1);
+  const int kept = sim::kept_count(n, limit);
+  int val = kIntMax, idx = kIntMax;
+  auto take = [&](int i, int v) {
+    if (v < val || (v == val && i < idx)) {
+      val = v;
+      idx = i;
+    }
+  };
+  int n4 = 0;
+  if ((reinterpret_cast<uintptr_t>(score) & 15) == 0) {
+    n4 = kept >> 2;
+    const int4* s4 = reinterpret_cast<const int4*>(score);
+    for (int k = t; k < n4; k += kWarp) {
+      const int4 v = load4<kReadOnly>(s4 + k);
+      const int i = k << 2;
+      take(i + 0, v.x);
+      take(i + 1, v.y);
+      take(i + 2, v.z);
+      take(i + 3, v.w);
+    }
+  }
+  for (int i = (n4 << 2) + t; i < kept; i += kWarp)
+    take(i, load1<kReadOnly>(score + i));
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const int v = __shfl_xor_sync(0xffffffffu, val, off);
+    const int i = __shfl_xor_sync(0xffffffffu, idx, off);
+    take(i, v);
+  }
+  return sim::masked_pick(n, kept, val, idx);
 }
 
 }  // namespace fts

@@ -13,17 +13,14 @@
 namespace {
 
 // fts_lookup_warp() one entry at a time: the first slot whose tag is seg
-// (S if none) and the first minimum of (s < limit ? score[s] : BIG).
+// (S if none) and sim::masked_argmin's victim candidate.
 sim::Lookup scalar_lookup(const int32_t* tags, const int32_t* score, int S,
                           int32_t seg, int32_t limit) {
-  sim::Lookup lk{S, 0};
-  int32_t best = 0;
+  sim::Lookup lk{S, sim::masked_argmin(score, S, limit)};
   for (int s = 0; s < S; ++s) {
-    if (tags[s] == seg && s < lk.hit_slot) lk.hit_slot = s;
-    const int32_t v = s < limit ? score[s] : sim::kBig;
-    if (s == 0 || v < best) {
-      best = v;
-      lk.cand = s;
+    if (tags[s] == seg) {
+      lk.hit_slot = s;
+      break;
     }
   }
   return lk;

@@ -80,6 +80,33 @@ SIM_FN int32_t clampi(int32_t x, int32_t lo, int32_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// The FTS victim argmin (fts.masked_argmin): the first index of the
+// minimum of (i < limit ? score[i] : BIG) over the n > 0 entries i < n,
+// ties to the first index, as jnp.argmin.  Only the kept entries,
+// i < kept_count(n, limit), need reading: every other one reads BIG, so
+// the first of them (index kept) wins only when none is kept or every
+// kept entry is above BIG.  masked_pick() takes the first minimum
+// (val, idx) over the kept entries (any val when none is kept); the warp
+// scan of fts_lookup.cuh and masked_argmin() below both end in it.
+SIM_FN int kept_count(int n, int32_t limit) {
+  return limit < n ? (limit > 0 ? limit : 0) : n;
+}
+SIM_FN int32_t masked_pick(int n, int kept, int32_t val, int32_t idx) {
+  return (kept < n && (kept == 0 || val > kBig)) ? kept : idx;
+}
+// The same, one entry at a time (the host builds).
+SIM_FN int32_t masked_argmin(const int32_t* score, int n, int32_t limit) {
+  const int kept = kept_count(n, limit);
+  int32_t val = 0, idx = 0;
+  for (int i = 0; i < kept; ++i) {
+    if (i == 0 || score[i] < val) {
+      val = score[i];
+      idx = i;
+    }
+  }
+  return masked_pick(n, kept, val, idx);
+}
+
 // Sizes and static choices of one replay (the dims array, in this order).
 struct Dims {
   int T, N;                 // steps, lanes

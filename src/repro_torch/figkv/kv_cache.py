@@ -7,9 +7,10 @@ Mapping (paper -> here):
   fast subarrays (64 rows x 8)   -> contiguous fast pool
                                     (B, fast_rows*segs_per_row slots)
   RELOC via global row buffer    -> segment move slow pool -> fast pool
-                                    (``kernels/figaro_reloc``)
   FTS {tag,valid,dirty,benefit}  -> identical structure (``core/fts``),
-                                    one store per sequence (lane axis B)
+                                    one store per sequence (lane axis B);
+                                    transaction and both moves of a step
+                                    in one ``kernels/figkv_tx`` launch
   insert-any-miss                -> top-scoring selected-but-uncached
                                     COMPLETE segment is relocated each step
                                     (the JAX package also relocates the
@@ -24,8 +25,15 @@ tests).
 
 The step is eager PyTorch and reads nothing back from the device: the
 position is a Python int carried in the state.  It updates the state's
-pools, segment summaries and fast pools IN PLACE (the slow pool is the
-size of the whole context) and returns new FTS leaves.
+pools, segment summaries, fast pools and FTS leaves IN PLACE (the slow
+pool is the size of the whole context; the transaction kernel writes the
+leaves where they lie), so the returned state holds the same tensors.
+
+A selected segment whose hit slot the same step's insert takes is read
+from the slow pool, which holds its exact K/V (``repair_slots`` in
+``kernels/figkv_tx/ref.py``).  The JAX package reads the inserted
+segment's copy in its place; its tag store, pools and fast pools stay
+equal to the port's.
 """
 from __future__ import annotations
 
@@ -36,8 +44,8 @@ import torch
 from repro_torch.configs import FIGKVConfig
 from repro_torch.core import fts as fts_lib
 from repro_torch.device import resolve_device
-from repro_torch.kernels.figaro_reloc.ops import reloc_segments
 from repro_torch.kernels.figcache_decode.ops import decode_attend
+from repro_torch.kernels.figkv_tx.ops import figkv_tx
 
 
 class FigKVState(NamedTuple):
@@ -108,46 +116,16 @@ def _select_segments(q: torch.Tensor, seg_key: torch.Tensor, n_live: int,
     return order[:, :n_sel].to(torch.int32)
 
 
-def _fts_step(fts: fts_lib.FTS, segs: torch.Tensor, step: torch.Tensor,
-              fig: FIGKVConfig, n_live: int):
-    """Per-sequence FTS transaction for the selected segments ``segs (B,
-    n_sel)``: touch hits; insert the best-scoring live miss (RowBenefit
-    eviction).  Returns (fts, slot_per_seg, inserted_seg, inserted_slot).
-
-    Only ids below ``n_live`` (complete segments) are inserted.  The
-    selection pads with dead ids when fewer than ``n_sel`` segments are
-    complete; the JAX package inserts those too (the active segment, or
-    one not written yet), and their copies never refresh.
-
-    The n_sel touches of a sequence are one vectorised update: top-k ids
-    are distinct, and so are their slots."""
-    hits, slots = fts_lib.lookup(fts, segs)
-    fts = fts_lib.touch(fts, slots, False, step, (1 << fig.benefit_bits) - 1,
-                        fig.segs_per_row, count=hits.to(torch.int32))
-    # insert-any-miss: the top-scoring live miss is relocated this step
-    miss = ~hits & (segs < n_live)
-    miss_order = torch.argmax(miss.to(torch.int32), dim=1)
-    any_miss = miss.any(dim=1)
-    ins_seg = torch.where(any_miss, segs.gather(1, miss_order[:, None])[:, 0],
-                          -1)
-    res = fts_lib.insert(fts, ins_seg, False, step, policy=fig.policy,
-                         segs_per_row=fig.segs_per_row)
-    fts = fts_lib.select(any_miss, res.fts, fts)
-    ins_slot = torch.where(any_miss, res.slot, -1)
-    slots = torch.where(segs == ins_seg[:, None], ins_slot[:, None],
-                        torch.where(hits, slots, -1))
-    return fts, slots, ins_seg, ins_slot
-
-
 def figkv_decode_step(state: FigKVState, q: torch.Tensor,
                       k_new: torch.Tensor, v_new: torch.Tensor,
                       fig: FIGKVConfig, *, n_sel: int = 16, recent: int = 64
                       ) -> Tuple[FigKVState, torch.Tensor]:
     """One decode step.  q (B,1,H,D); k_new/v_new (B,1,Hkv,D).
 
-    Returns (state', attention output (B,1,H,D)).  One ``reloc_segments``
-    launch each for K and V (one masked move per sequence) and one
-    ``decode_attend`` launch."""
+    Returns (state', attention output (B,1,H,D)); the state's tensors,
+    FTS leaves included, are updated in place.  One ``figkv_tx`` launch
+    (every sequence's transaction and K/V move) and one ``decode_attend``
+    launch."""
     st = fig.seg_tokens
     if recent < 2 * st:
         raise ValueError("recent window must cover the active (uncacheable) "
@@ -168,19 +146,15 @@ def figkv_decode_step(state: FigKVState, q: torch.Tensor,
     # only COMPLETE segments are cacheable: the active segment still mutates
     n_live = (pos + 1) // st
 
-    # -- segment selection + FTS transaction, batched over sequences -------
+    # -- segment selection, then the FTS transaction and the RELOC of the
+    #    inserted segment into the fast pool, batched over sequences.  The
+    #    segment views leave out a ragged tail: Smax need not be a multiple
+    #    of st, and the kernel takes the pool's own strides (no copy) -----
     sel = _select_segments(q, seg_key, n_live, n_sel)          # (B, n_sel)
-    step = torch.full((B,), pos, dtype=torch.int32, device=q.device)
-    fts, slots, ins_seg, ins_slot = _fts_step(state.fts, sel, step, fig,
-                                              n_live)
-
-    # -- RELOC: move the inserted segment into the fast pool.  The segment
-    #    views leave out a ragged tail: Smax need not be a multiple of st,
-    #    and the kernel takes the pool's own strides (no copy) ------------
     seg_k = pool_k[:, :n_segs * st].view(B, n_segs, st, Hkv, D)
     seg_v = pool_v[:, :n_segs * st].view(B, n_segs, st, Hkv, D)
-    reloc_segments(seg_k, state.fast_k, ins_seg[:, None], ins_slot[:, None])
-    reloc_segments(seg_v, state.fast_v, ins_seg[:, None], ins_slot[:, None])
+    slots, _, _ = figkv_tx(sel, pos, n_live, state.fts, seg_k, seg_v,
+                           state.fast_k, state.fast_v, fig)
 
     # -- gather selected segments: fast pool when cached, slow pool else ---
     b = torch.arange(B, device=q.device)[:, None]
@@ -208,7 +182,7 @@ def figkv_decode_step(state: FigKVState, q: torch.Tensor,
     valid = torch.cat([sel_valid, rec_valid], dim=1)           # (B, L)
     out = decode_attend(q, k_all, v_all, valid)
 
-    return state._replace(fts=fts, length=pos + 1), out
+    return state._replace(length=pos + 1), out
 
 
 def _masked_attend(q, k, v, valid):

@@ -24,6 +24,7 @@ from repro.figkv import kv_cache as jkv
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs import FIGKVConfig as TFIG
+from repro_torch.core import fts as fts_lib
 from repro_torch.figkv import embed_cache as tembed
 from repro_torch.figkv import kv_cache as tkv
 from repro_torch.launch import serve
@@ -83,15 +84,19 @@ def _run_both(dtype, S0, smax, steps, n_sel, recent, seed, handover=None):
     """Decode ``steps`` steps in both packages; with ``handover=t`` the port
     starts from the JAX state converted after step t (and the JAX run goes
     on alone until then).  Returns the port's state, the number of steps
-    whose state and output were compared with the JAX package and the
-    number whose selections were.
+    whose state was compared with the JAX package, the number whose
+    selections were and the number whose outputs were.
 
     With fewer complete segments than ``n_sel`` the JAX package caches the
     dead ids that pad the selection, and the port does not: from the first
     step at which the reference holds such an id on, only the selections
-    are held against it.  Every step the port caches no incomplete segment,
-    and its output is held against ``_plain_step`` over its own selection
-    (the same tolerance)."""
+    are held against it.  When a step's insert takes the slot of a segment
+    the same step selected and hit, the port reads that segment from the
+    slow pool and the JAX package reads the inserted segment's copy: from
+    the first such step on, the outputs are no longer held against the
+    reference (the state still is).  Every step the port caches no
+    incomplete segment, and its output is held against ``_plain_step`` over
+    its own selection (the same tolerance)."""
     jdt, tdt, tol = DTYPES[dtype]
     jfig, tfig = JFIG(**FIG), TFIG(**FIG)
     k0, v0, qs, ks, vs = _inputs(seed, S0, steps)
@@ -103,8 +108,8 @@ def _run_both(dtype, S0, smax, steps, n_sel, recent, seed, handover=None):
     step = jax.jit(lambda s, q, k, v: jkv.figkv_decode_step(
         s, q, k, v, jfig, n_sel=n_sel, recent=recent))
     jsel = jax.jit(jkv._select_segments, static_argnums=3)
-    compared = selections = 0
-    dead_insert = False
+    compared = selections = outputs = 0
+    dead_insert = repaired = False
     K, V = [_t(k0, tdt)], [_t(v0, tdt)]
     for t in range(steps):
         pos = int(js.length)
@@ -122,6 +127,7 @@ def _run_both(dtype, S0, smax, steps, n_sel, recent, seed, handover=None):
         js, jout = step(js, jnp.asarray(qs[t], jdt), jnp.asarray(ks[t], jdt),
                         jnp.asarray(vs[t], jdt))
         q = _t(qs[t], tdt)
+        before = (ts.fts.tags.clone(), ts.fts.valid.clone())
         ts, tout = tkv.figkv_decode_step(ts, q, _t(ks[t], tdt),
                                          _t(vs[t], tdt), tfig, n_sel=n_sel,
                                          recent=recent)
@@ -141,30 +147,45 @@ def _run_both(dtype, S0, smax, steps, n_sel, recent, seed, handover=None):
                                    err_msg=f"step {t} output vs recomputed")
         dead_insert |= bool((np.asarray(js.fts.valid)
                              & (np.asarray(js.fts.tags) >= n_live)).any())
+        # a selected id that hit before the step and whose slot now holds
+        # another segment: the step's insert took it
+        hits, slot = fts_lib.lookup(ts.fts._replace(tags=before[0],
+                                                    valid=before[1]), sel)
+        repaired |= bool((hits & (ts.fts.tags.gather(1, slot.long()) != sel))
+                         .any())
         if dead_insert:
             continue
         _assert_state_equal(js, ts, f"step {t}")
+        compared += 1
+        if repaired:
+            continue
         np.testing.assert_allclose(_f32(tout), _f32(jout), atol=tol,
                                    err_msg=f"step {t} output")
-        compared += 1
-    return ts, compared, selections
+        outputs += 1
+    return ts, compared, selections, outputs
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("S0,smax,steps,n_sel", [
     (160, 200, 24, 4),      # 20 live segments > 16 slots: RowBenefit evicts
+    (160, 220, 56, 4),      # ... long enough to take a hit segment's slot
     (9, 100, 10, 6),        # n_live < n_sel: dead ids tie at -inf
     (21, 61, 12, 5),        # s_max and prompt not multiples of seg_tokens
-], ids=["evicting", "short-prompt", "ragged"])
+], ids=["evicting", "evicting-long", "short-prompt", "ragged"])
 def test_decode_steps_match_jax(dtype, S0, smax, steps, n_sel):
-    ts, compared, selections = _run_both(dtype, S0, smax, steps, n_sel,
-                                         recent=16, seed=S0 + smax)
+    ts, compared, selections, outputs = _run_both(
+        dtype, S0, smax, steps, n_sel, recent=16, seed=S0 + smax)
     assert selections == steps
-    print(f"state and output compared on {compared} of {steps} steps")
+    print(f"state compared on {compared}, output on {outputs} of {steps} "
+          "steps")
     if S0 == 160:
         assert compared == steps
+        if steps > 24:      # a step's insert took a hit segment's slot
+            assert 1 <= outputs < steps
+        else:
+            assert outputs == steps
     else:                   # the reference caches a dead id from a step on
-        assert 1 <= compared < steps
+        assert 1 <= compared < steps and outputs == compared
     assert int(ts.fts.valid.sum()) > 0
     if S0 == 160:                       # the pool filled and RowBenefit ran
         assert bool((ts.fts.evict_row >= 0).all())
@@ -185,9 +206,9 @@ def test_short_prompt_selects_dead_ids_lowest_first():
 
 def test_handover_from_jax_midway():
     """A decode started in the JAX package continues in the port."""
-    _, compared, _ = _run_both("bf16", 160, 200, 14, 4, recent=16, seed=5,
-                               handover=6)
-    assert compared == 7
+    _, compared, _, outputs = _run_both("bf16", 160, 200, 14, 4, recent=16,
+                                        seed=5, handover=6)
+    assert compared == outputs == 7
 
 
 def test_full_coverage_equals_exact_attention():
@@ -333,12 +354,17 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_demo_figkv_launches_both_kernels(cuda_device):
+    """One figkv_tx (transaction and both moves) and one figcache_decode
+    launch a step; figaro_reloc no more on this path."""
     from repro_torch.kernels.figaro_reloc import figaro_reloc
     from repro_torch.kernels.figcache_decode import figcache_decode
+    from repro_torch.kernels.figkv_tx import figkv_tx
     cfg = tconfigs.get_reduced("qwen2-7b")
-    r0, d0 = figaro_reloc.COUNTER.launches, figcache_decode.COUNTER.launches
+    r0, d0, t0 = (figaro_reloc.COUNTER.launches,
+                  figcache_decode.COUNTER.launches, figkv_tx.COUNTER.launches)
     run = serve.demo_figkv(cfg, torch.Generator(cuda_device).manual_seed(0),
                            prompt_len=64, gen=8, batch=2, device=cuda_device)
     assert figcache_decode.COUNTER.launches - d0 == 8
-    assert figaro_reloc.COUNTER.launches - r0 == 16
+    assert figkv_tx.COUNTER.launches - t0 == 8
+    assert figaro_reloc.COUNTER.launches - r0 == 0
     assert torch.isfinite(run.out.float()).all()
