@@ -1,5 +1,6 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
-simulator, the FIGCache-KV serving path and the dense LM serving path.
+simulator (its controllers, streamed replay, chunk codec and checkpoints
+too), the FIGCache-KV serving path and the dense LM serving path.
 
     python3 chip_smoke.py
 
@@ -87,13 +88,40 @@ Phases, each of which raises (non-zero exit) on any failed check:
    dim 20, which the kernel runs zero-padded to 32): one flash_attention
    launch per layer, finite logits, each layer's kernel output held
    against the plain version on its own inputs;
-9. summary: one ``{"kernels": [...]}`` JSON line (device times from
+9. controllers: the 24 GOLDEN fingerprints of tests/test_obs.py:108-153
+   (6 mechanisms x fcfs / frfcfs / drain / frfcfs+drain) and the two
+   interior no-op goldens of tests/test_streaming.py:355-365, each through
+   sim_scan monolithic (the trace scheduled on the host), streamed by
+   ``streaming.simulate_stream`` at chunk lengths 1, 7, 64 and full (17 for
+   the no-op trace), and by the wave route (``wavefront.run_channel_waves``:
+   the linearized waves in one launch); the launches checked per route
+   (one per segment, one per wave call); then the wave route held against
+   the eager wave step on the card, every state leaf, six mechanisms under
+   frfcfs+drain;
+10. long trace: fig-8 workload 0 at 65536 requests per channel, 4
+   channels, all six mechanisms under FCFS and under FR-FCFS (queue 16) +
+   write drain (16): ``simulator.sweep`` monolithic and with
+   ``chunk_len=8192``, ``simulate_stream`` over ``decoded_segments`` of
+   ``encode_trace`` (the FCFS order encoded, decoded on the card,
+   scheduled on the host), and a stream killed after its segment-3
+   checkpoint and finished by ``resume_stream``; every counter bitwise
+   equal to the monolithic run; each route's wall time, peak device memory
+   and launches, and the host's shares (trace building, scheduling,
+   encode, decode, checkpoint save and restore);
+11. controller grid: fig 16's grid (benchmarks/fig16_scheduler.py, copied):
+   5 controllers x {base, figcache_fast} on workloads 5 and 17 at 12288
+   requests per channel through ``simulator.sweep`` (10 launches a
+   workload), its speedup summary; one group of workload 5 at 1024
+   requests per channel held against the eager loop, bitwise;
+12. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
-   launches, 0, a field apart), the nvidia-smi line, and
+   launches, 0, a field apart; sim_scan's launches on each simulator path
+   of phases 4 and 9-11, counted from 0 around it, in ``path_launches``),
+   the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -109,6 +137,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -118,7 +147,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import dram, simulator, timing, traces  # noqa: E402
+from repro_torch import checkpoint  # noqa: E402
+from repro_torch.core import (dram, simulator, streaming, timing,  # noqa: E402
+                              traces)
+from repro_torch.core.sched import policies, wavefront  # noqa: E402
 from repro_torch.core import fts as fts_lib  # noqa: E402
 from repro_torch.figkv import embed_cache, kv_cache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -163,22 +195,91 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-7b", 4, 4096, 64
 # the reduced StableLM-12B (head dim 20: the padded head-dim path)
 PAD_ARCH = "stablelm-12b"
 
-# (acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks, row_hits,
-#  cache_hits, insertions, sum(lat_sum_ns), sum(req_cnt), t_end): the FCFS
-# column of GOLDEN in tests/test_obs.py:108-153 (cache_rows=2 for the cached
-# mechanisms, on that file's _reuse_trace()).
-GOLDEN_FCFS = {
-    "base": (320, 0, 256, 64, 0, 0, 0, 0, 0, 203846, 320, 28920),
-    "lldram": (0, 320, 256, 64, 0, 0, 0, 0, 0, 132798, 320, 19118),
-    "lisa_villa": (296, 24, 256, 64, 37888, 7552, 0, 24, 296, 257761, 320,
-                   36264),
-    "figcache_slow": (295, 0, 256, 64, 4320, 752, 25, 50, 270, 299156, 320,
-                      42932),
-    "figcache_fast": (270, 25, 256, 64, 4320, 752, 25, 50, 270, 291785, 320,
-                      42012),
-    "figcache_ideal": (270, 25, 256, 64, 4320, 752, 25, 50, 270, 185359,
-                       320, 26656),
+# tests/test_obs.py's controllers
+SCHEDS = {
+    "fcfs": timing.SCHED_FCFS,
+    "frfcfs": timing.SchedConfig("frfcfs", queue_depth=8, starve_cap=4),
+    "drain": timing.SchedConfig(write_drain=True, drain_batch=4),
+    "frfcfs+drain": timing.SchedConfig("frfcfs", queue_depth=8, starve_cap=4,
+                                       write_drain=True, drain_batch=4),
 }
+# (acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks, row_hits,
+#  cache_hits, insertions, sum(lat_sum_ns), sum(req_cnt), t_end): GOLDEN of
+# tests/test_obs.py:108-153 (cache_rows=2 for the cached mechanisms, on that
+# file's _reuse_trace()), per mechanism and controller
+GOLDEN = {
+    ("base", "fcfs"): (320, 0, 256, 64, 0, 0, 0, 0, 0, 203846, 320, 28920),
+    ("base", "frfcfs"): (320, 0, 256, 64, 0, 0, 0, 0, 0, 203846, 320, 28920),
+    ("base", "drain"): (320, 0, 256, 64, 0, 0, 0, 0, 0, 204769, 320, 28968),
+    ("base", "frfcfs+drain"): (320, 0, 256, 64, 0, 0, 0, 0, 0, 204769, 320,
+                               28968),
+    ("lldram", "fcfs"): (0, 320, 256, 64, 0, 0, 0, 0, 0, 132798, 320, 19118),
+    ("lldram", "frfcfs"): (0, 320, 256, 64, 0, 0, 0, 0, 0, 132798, 320,
+                           19118),
+    ("lldram", "drain"): (0, 320, 256, 64, 0, 0, 0, 0, 0, 133624, 320,
+                          19188),
+    ("lldram", "frfcfs+drain"): (0, 320, 256, 64, 0, 0, 0, 0, 0, 133624,
+                                 320, 19188),
+    ("lisa_villa", "fcfs"): (296, 24, 256, 64, 37888, 7552, 0, 24, 296,
+                             257761, 320, 36264),
+    ("lisa_villa", "frfcfs"): (296, 24, 256, 64, 37888, 7552, 0, 24, 296,
+                               257761, 320, 36264),
+    ("lisa_villa", "drain"): (297, 23, 256, 64, 38016, 7552, 0, 23, 297,
+                              257802, 320, 36262),
+    ("lisa_villa", "frfcfs+drain"): (297, 23, 256, 64, 38016, 7552, 0, 23,
+                                     297, 257802, 320, 36262),
+    ("figcache_slow", "fcfs"): (295, 0, 256, 64, 4320, 752, 25, 50, 270,
+                                299156, 320, 42932),
+    ("figcache_slow", "frfcfs"): (295, 0, 256, 64, 4320, 752, 25, 50, 270,
+                                  299156, 320, 42932),
+    ("figcache_slow", "drain"): (291, 0, 256, 64, 4272, 768, 29, 53, 267,
+                                 296726, 320, 42712),
+    ("figcache_slow", "frfcfs+drain"): (291, 0, 256, 64, 4272, 768, 29, 53,
+                                        267, 296726, 320, 42712),
+    ("figcache_fast", "fcfs"): (270, 25, 256, 64, 4320, 752, 25, 50, 270,
+                                291785, 320, 42012),
+    ("figcache_fast", "frfcfs"): (270, 25, 256, 64, 4320, 752, 25, 50, 270,
+                                  291785, 320, 42012),
+    ("figcache_fast", "drain"): (267, 24, 256, 64, 4272, 768, 29, 53, 267,
+                                 290152, 320, 41884),
+    ("figcache_fast", "frfcfs+drain"): (267, 24, 256, 64, 4272, 768, 29,
+                                        53, 267, 290152, 320, 41884),
+    ("figcache_ideal", "fcfs"): (270, 25, 256, 64, 4320, 752, 25, 50, 270,
+                                 185359, 320, 26656),
+    ("figcache_ideal", "frfcfs"): (270, 25, 256, 64, 4320, 752, 25, 50,
+                                   270, 185359, 320, 26656),
+    ("figcache_ideal", "drain"): (267, 24, 256, 64, 4272, 768, 29, 53, 267,
+                                  184511, 320, 26528),
+    ("figcache_ideal", "frfcfs+drain"): (267, 24, 256, 64, 4272, 768, 29,
+                                         53, 267, 184511, 320, 26528),
+}
+# tests/test_streaming.py:355-365 _GOLDEN: counter sums of the interior
+# no-op trace (three 40-request runs between two 8-deep no-op runs)
+INTERIOR_GOLDEN = {
+    "base": (120, 0, 90, 30, 0, 0, 0, 0, 0, 29935, 120, 6630),
+    "figcache_fast": (120, 0, 90, 30, 1920, 160, 0, 0, 120, 50400, 120,
+                      10050),
+}
+# the long trace: one fig-8 workload at 65536 requests per channel,
+# replayed monolithic, in 8192-request segments, from the chunk codec and
+# resumed from a checkpoint, under FCFS and the controller below
+LONG_WORKLOAD, LONG_PER_CHANNEL, LONG_CHUNK, LONG_KILL = 0, 65536, 8192, 5
+LONG_SCHED = timing.SchedConfig("frfcfs", queue_depth=16, write_drain=True,
+                                drain_batch=16)
+# fig 16's grid (benchmarks/fig16_scheduler.py:24-30 and :37-43): five
+# controllers x {base, figcache_fast} on workloads 5 and 17 (common.WL_IDX
+# [50][0], [100][1]) at common.LONG_REQS_8CORE requests per channel
+FIG16_SCHEDS = (
+    ("fcfs", timing.SchedConfig()),
+    ("frfcfs_qd8", timing.SchedConfig("frfcfs", queue_depth=8)),
+    ("frfcfs_qd16", timing.SchedConfig("frfcfs", queue_depth=16)),
+    ("frfcfs_qd32", timing.SchedConfig("frfcfs", queue_depth=32)),
+    ("frfcfs_qd16_drain", timing.SchedConfig("frfcfs", queue_depth=16,
+                                             write_drain=True,
+                                             drain_batch=16)),
+)
+FIG16_WORKLOADS, FIG16_PER_CHANNEL, FIG16_EAGER_PER_CHANNEL = \
+    (5, 17), 12288, 1024
 
 
 def log(msg):
@@ -861,6 +962,31 @@ def reuse_trace(n=320):
                       is_write=idx % 5 == 0, core=(idx % 8).astype(np.int32))
 
 
+def golden_config(mech, sc):
+    kw = {"cache_rows": 2} if timing.paper_config(mech).has_cache else {}
+    return timing.paper_config(mech, sched=sc, **kw)
+
+
+def interior_noop_trace():
+    """tests/test_streaming.py:_interior_noop_trace() as numpy arrays."""
+    parts = []
+    for blk in range(3):
+        idx = np.arange(40) + blk * 40
+        parts.append(dram.Trace(t_issue=idx * 24, bank=idx % 5,
+                                row=(idx * 11) % 97, col=(idx * 3) % 128,
+                                is_write=idx % 4 == 0, core=idx % 8))
+        if blk < 2:
+            parts.append(dram.noop_pad(dram.Trace(*[np.zeros(0, int)] * 6),
+                                       8))
+    return dram.Trace(*[np.concatenate(xs).astype(
+        bool if f == "is_write" else np.int32)
+        for f, xs in zip(dram.Trace._fields, zip(*parts))])
+
+
+def fingerprint(cnt):
+    return tuple(int(x.sum()) for x in cnt)
+
+
 def phase_golden(dev):
     tr = reuse_trace()
     t0 = time.perf_counter()
@@ -870,14 +996,14 @@ def phase_golden(dev):
               ("eager loop, plain lookup",
                {"_advance": eager, "fts_lookup_op": plain_lookup_op}))
     n = 0
-    for mech, want in GOLDEN_FCFS.items():
-        kw = {"cache_rows": 2} if mech not in ("base", "lldram") else {}
-        cfg = timing.paper_config(mech, **kw)
+    for mech in simulator.PAPER_MECHS:
+        want = GOLDEN[(mech, "fcfs")]
+        cfg = golden_config(mech, timing.SCHED_FCFS)
         for route, patch in routes:
             before = scan_kernel.COUNTER.launches
             with patched(dram, **patch):
                 cnt = dram.run_channel(tr, cfg, device=dev)
-            got = tuple(int(x.sum()) for x in cnt)
+            got = fingerprint(cnt)
             check(got == want, f"golden {mech} ({route}): {got} != {want}")
             check(scan_kernel.COUNTER.launches - before ==
                   (1 if route == "replay kernel" else 0),
@@ -1157,6 +1283,318 @@ def phase_scan_timing(dev, lat, samples=5):
             f"), {ms / chain_ms:.2f}x")
         del tr, lp, bank0, cnt0, bank, cnt
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: controllers, through sim_scan
+
+def counted(fn, want, what):
+    """``fn()``, checking that it launched sim_scan exactly ``want``
+    times."""
+    before = scan_kernel.COUNTER.launches
+    out = fn()
+    check(scan_kernel.COUNTER.launches - before == want,
+          f"{what}: {scan_kernel.COUNTER.launches - before} sim_scan "
+          f"launches, expected {want}")
+    return out
+
+
+def golden_routes(tr, cfg, dev, chunks, what):
+    """The counters of ``tr`` under ``cfg`` through sim_scan, each way:
+    the scheduled trace monolithic (one launch), streamed at each chunk
+    length (one launch per segment) and by the wave route (one launch)."""
+    n_real = int((tr.t_issue < dram.NOOP_ISSUE).sum())
+    sched = policies.schedule(tr, cfg.sched)
+    out = {"monolithic": counted(
+        lambda: dram.run_channel(sched, cfg, device=dev), 1, what)}
+    for L in chunks:
+        # the scheduler re-packs the real requests into full segments, the
+        # identity controller keeps the input's segments
+        n_seg = -(-(n_real if not cfg.sched.is_identity
+                    else tr.t_issue.shape[-1]) // L)
+        out[f"chunk {L}"] = counted(lambda: streaming.simulate_stream(
+            streaming.iter_chunks(tr, L), cfg, device=dev), n_seg,
+            f"{what} chunk {L}")
+    out["wave"] = counted(lambda: wavefront.run_channel_waves(
+        sched, cfg, device=dev), 1, f"{what} wave")
+    return out
+
+
+def phase_controllers(dev):
+    """The 24 GOLDEN fingerprints (6 mechanisms x 4 controllers) and the
+    two interior no-op goldens through sim_scan, each monolithic, streamed
+    and by the wave route; then the wave route held against the eager wave
+    step on the card."""
+    t0 = time.perf_counter()
+    scan_kernel.COUNTER.launches = 0
+    tr, n = reuse_trace(), 0
+    for (mech, sid), want in GOLDEN.items():
+        cfg = golden_config(mech, SCHEDS[sid])
+        for route, cnt in golden_routes(tr, cfg, dev, (1, 7, 64, 320),
+                                        (mech, sid)).items():
+            check(fingerprint(cnt) == want,
+                  f"golden {mech} {sid} ({route}): {fingerprint(cnt)}")
+            n += 1
+    holes = interior_noop_trace()
+    for mech, want in INTERIOR_GOLDEN.items():
+        cfg = golden_config(mech, timing.SCHED_FCFS)
+        for route, cnt in golden_routes(holes, cfg, dev, (17,),
+                                        mech).items():
+            check(fingerprint(cnt) == want,
+                  f"interior no-op golden {mech} ({route}): "
+                  f"{fingerprint(cnt)}")
+            n += 1
+    torch.cuda.synchronize()
+    launches = scan_kernel.COUNTER.launches
+    secs = time.perf_counter() - t0
+    log(f"[controllers] {n} fingerprints match (24 GOLDEN of "
+        f"tests/test_obs.py x monolithic, streamed at 1/7/64/320 and the "
+        f"wave route; 2 interior no-op goldens of tests/test_streaming.py x "
+        f"monolithic, streamed at 17 and the wave route): {launches} "
+        f"sim_scan launches in {secs:.1f} s")
+
+    # the wave route (one sim_scan launch over the linearized waves)
+    # against its plain version, the eager wave step, on the card
+    t0 = time.perf_counter()
+    sc = SCHEDS["frfcfs+drain"]
+    for mech in simulator.PAPER_MECHS:
+        cfg = golden_config(mech, sc)
+        wtr = wavefront.form_waves(policies.schedule(tr, sc), lookahead=16)
+        p = cfg.params(device=dev)
+        state = dram.sim_init(cfg.static, device=dev)
+        got = wavefront.resume_waves(wtr, cfg.static, p, state, device=dev)
+        want = wavefront._advance_waves_eager(wtr, cfg.static, p, state, dev)
+        for (name, a), (_, b) in zip(scan_kernel._leaves(got.bank, got.cnt),
+                                     scan_kernel._leaves(want.bank,
+                                                         want.cnt)):
+            check(torch.equal(a, b), f"wave route {mech}: {name} differs "
+                  "from the eager wave step")
+    n_waves, width = wtr.t_issue.shape
+    log(f"[controllers] wave route == eager wave step on every state leaf, "
+        f"6 mechanisms under frfcfs+drain, {n_waves} waves of {width} "
+        f"(lookahead 16) ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a long trace, monolithic, streamed, decoded and resumed
+
+class Killed(Exception):
+    """Ends a streamed replay partway, as a killed process would."""
+
+
+def killed_after(segments, n):
+    for i, seg in enumerate(segments):
+        if i == n:
+            raise Killed
+        yield seg
+
+
+@contextlib.contextmanager
+def host_timer(shares, key, module, name):
+    """Add the wall time of every call of ``module.name`` to
+    ``shares[key]``."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            shares[key] = shares.get(key, 0.0) + time.perf_counter() - t0
+    with patched(module, **{name: timed}):
+        yield
+
+
+def timed_route(fn):
+    """(result, wall s, peak device bytes) of ``fn()``, synchronised; the
+    peak counts what ``fn`` allocated on top of what was live before it
+    (the earlier phases' tensors)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - live)
+
+
+def phase_long_trace(dev):
+    """One fig-8 workload at LONG_PER_CHANNEL requests per channel, all six
+    mechanisms under FCFS and LONG_SCHED: ``simulator.sweep`` monolithic
+    and with ``chunk_len``, ``simulate_stream`` over the decoded chunk
+    codec, and a streamed run killed after its segment-3 checkpoint and
+    finished by ``resume_stream``; every counter bitwise equal."""
+    name, _, apps = traces.eight_core_workloads()[LONG_WORKLOAD]
+    mechs = simulator.PAPER_MECHS
+    cfgs = [timing.paper_config(m, sched=sc)
+            for sc in (timing.SCHED_FCFS, LONG_SCHED) for m in mechs]
+    t0 = time.perf_counter()
+    tr = traces.build_trace(apps, N_CHANNELS, LONG_PER_CHANNEL, 2)
+    build_s = time.perf_counter() - t0
+    log(f"[long] workload {name}: {N_CHANNELS} channels x "
+        f"{LONG_PER_CHANNEL} requests built on the host in {build_s:.3f} s")
+    scan_kernel.COUNTER.launches = 0
+    routes, shares = {}, {}
+
+    with host_timer(shares, "schedule (monolithic route)", policies,
+                    "schedule"):
+        mono, wall, peak = timed_route(lambda: counted(
+            lambda: simulator.sweep(tr, cfgs, apps, device=dev), len(cfgs),
+            "long monolithic"))
+    routes["monolithic"] = (wall, peak, len(cfgs))
+    n_seg = LONG_PER_CHANNEL // LONG_CHUNK
+    res, wall, peak = timed_route(lambda: counted(
+        lambda: simulator.sweep(tr, cfgs, apps, chunk_len=LONG_CHUNK,
+                                device=dev), len(cfgs) * n_seg,
+        "long chunked"))
+    routes[f"chunk_len={LONG_CHUNK}"] = (wall, peak, len(cfgs) * n_seg)
+    got = {f"chunk_len={LONG_CHUNK}": [r.counters for r in res]}
+
+    # the codec: each channel encoded once (the FCFS order: a scheduled
+    # trace's negative deltas would end a chunk every few requests), then
+    # decoded on the card segment by segment and scheduled on the host
+    t0 = time.perf_counter()
+    enc = [traces.encode_trace(dram.Trace(*[x[c] for x in tr]),
+                               chunk_len=LONG_CHUNK)
+           for c in range(N_CHANNELS)]
+    shares["encode"] = time.perf_counter() - t0
+    n_codec = max(len(e) for e in enc)
+    (_, wall_dec, _) = timed_route(lambda: list(streaming.decoded_segments(
+        enc, dev)))
+    shares["decode (once)"] = wall_dec
+    before = scan_kernel.COUNTER.launches
+    out, wall, peak = timed_route(lambda: [dram.Counters(*[
+        x.cpu().numpy() for x in streaming.simulate_stream(
+            streaming.decoded_segments(enc, dev), cfg, device=dev)])
+        for cfg in cfgs])
+    routes["codec"] = (wall, peak, scan_kernel.COUNTER.launches - before)
+    got["codec"] = out
+    log(f"[long] codec: {n_codec} chunks of {LONG_CHUNK} on the longest "
+        f"channel ({[len(e) for e in enc]}), "
+        f"{traces.encoded_nbytes(sum(enc, []))} bytes encoded against "
+        f"{sum(x.nbytes for x in tr)} raw")
+
+    # killed after the segment-3 checkpoint, then resumed
+    before = scan_kernel.COUNTER.launches
+    out = []
+    with host_timer(shares, "checkpoint save", checkpoint, "save_sim_state"), \
+            host_timer(shares, "checkpoint restore", checkpoint,
+                       "restore_sim_state"):
+        def resumed():
+            for cfg in cfgs:
+                with tempfile.TemporaryDirectory() as d:
+                    try:
+                        streaming.simulate_stream(
+                            killed_after(streaming.iter_chunks(
+                                tr, LONG_CHUNK), LONG_KILL), cfg,
+                            checkpoint_dir=d, checkpoint_every=3,
+                            device=dev)
+                    except Killed:
+                        pass
+                    else:
+                        check(False, "the killed stream ran to its end")
+                    check(checkpoint.committed_steps(d) == [3],
+                          f"checkpoints {checkpoint.committed_steps(d)}")
+                    out.append(dram.Counters(*[
+                        x.cpu().numpy() for x in streaming.resume_stream(
+                            streaming.iter_chunks(tr, LONG_CHUNK), cfg, d,
+                            device=dev)]))
+            return out
+        _, wall, peak = timed_route(resumed)
+    routes["killed + resumed"] = (wall, peak,
+                                  scan_kernel.COUNTER.launches - before)
+    got["killed + resumed"] = out
+    launches = scan_kernel.COUNTER.launches
+
+    for route, cnts in got.items():
+        for cfg, ref, cnt in zip(cfgs, mono, cnts):
+            for f, a, b in zip(dram.Counters._fields, ref.counters, cnt):
+                check(np.array_equal(a, b), f"long {route} {cfg.mechanism} "
+                      f"{cfg.sched.policy}: {f} differs from monolithic")
+    for r in mono:
+        check(np.isfinite(r.ipc).all() and (r.ipc > 0).all() and
+              int(r.counters.req_cnt.sum()) == N_CHANNELS * LONG_PER_CHANNEL,
+              f"long monolithic {r.mechanism}: empty or non-finite result")
+    for route, (wall, peak, n) in routes.items():
+        log(f"[long] {route:18s} wall {wall:.3f} s, peak device memory "
+            f"{peak / 2**20:.2f} MiB above the live tensors before it, "
+            f"sim_scan launches {n}")
+    log("[long] host shares: trace build " + f"{build_s:.3f} s, " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in shares.items()))
+    log(f"[long] monolithic, chunk_len={LONG_CHUNK}, codec and killed + "
+        f"resumed routes bitwise equal on every counter of 6 mechanisms x "
+        f"{{fcfs, frfcfs qd16 + drain 16}}; {launches} sim_scan launches")
+    sp = {sc: simulator.speedup_summary(
+        {c.mechanism: r for c, r in zip(cfgs, mono) if c.sched == sc})
+        for sc in (timing.SCHED_FCFS, LONG_SCHED)}
+    for sc, s in sp.items():
+        log(f"[long] speedup vs base under {sc.policy}"
+            f"{' + drain' if sc.write_drain else ''}: " +
+            ", ".join(f"{m}={v:.4f}" for m, v in s.items()))
+    return {"launches": launches, "routes": routes, "shares": shares,
+            "build_s": build_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: fig 16's controller grid
+
+def phase_controller_grid(dev):
+    """Five controllers x {base, figcache_fast} on two workloads through
+    ``simulator.sweep`` (one sim_scan launch per group); one group of one
+    workload at FIG16_EAGER_PER_CHANNEL held against the eager loop."""
+    all_wl = traces.eight_core_workloads()
+    cfgs = [timing.paper_config(m, sched=sc) for _, sc in FIG16_SCHEDS
+            for m in ("base", "figcache_fast")]
+    t0 = time.perf_counter()
+    trs = {w: traces.build_trace(all_wl[w][2], N_CHANNELS, FIG16_PER_CHANNEL,
+                                 2) for w in FIG16_WORKLOADS}
+    build_s = time.perf_counter() - t0
+    shares = {}
+    scan_kernel.COUNTER.launches = 0
+    with host_timer(shares, "schedule", policies, "schedule"):
+        res, wall, _ = timed_route(lambda: {w: simulator.sweep(
+            trs[w], cfgs, all_wl[w][2], device=dev) for w in trs})
+    launches = scan_kernel.COUNTER.launches
+    check(launches == len(cfgs) * len(trs),
+          f"fig-16 grid launched sim_scan {launches} times, expected "
+          f"{len(cfgs) * len(trs)}")
+    for w, r in res.items():
+        for x in r:
+            check(np.isfinite(x.ipc).all() and (x.ipc > 0).all(),
+                  f"fig-16 workload {w} {x.mechanism}: non-finite result")
+    log(f"[fig16] {len(FIG16_SCHEDS)} controllers x {{base, figcache_fast}} x "
+        f"workloads {FIG16_WORKLOADS} at {FIG16_PER_CHANNEL} requests per "
+        f"channel: {wall:.3f} s through sim_scan ({launches} launches; "
+        f"scheduling on the host {shares['schedule']:.3f} s), traces built "
+        f"in {build_s:.3f} s")
+    summary = {}
+    for k, (label, _) in enumerate(FIG16_SCHEDS):
+        sp = [simulator.speedup(r[2 * k + 1], r[2 * k]) for r in res.values()]
+        rh = [r[2 * k].row_hit_rate for r in res.values()]
+        summary[label] = (float(np.mean(sp)), float(np.mean(rh)))
+        log(f"[fig16]   {label:18s} figcache_fast weighted speedup "
+            f"{summary[label][0]:.4f}, base row-hit rate "
+            f"{summary[label][1]:.4f}")
+
+    # one group (figcache_fast under the last controller) of one workload,
+    # smaller, through the eager loop: counters bitwise
+    w = FIG16_WORKLOADS[0]
+    small = traces.build_trace(all_wl[w][2], N_CHANNELS,
+                               FIG16_EAGER_PER_CHANNEL, 2)
+    cfg = [cfgs[-1]]
+    t0 = time.perf_counter()
+    kern = simulator.sweep(small, cfg, all_wl[w][2], device=dev)[0]
+    with patched(dram, _advance=dram._advance_eager):
+        eager = simulator.sweep(small, cfg, all_wl[w][2], device=dev)[0]
+    for f, a, b in zip(dram.Counters._fields, kern.counters, eager.counters):
+        check(np.array_equal(a, b), f"fig-16 group {f}: sim_scan differs "
+              "from the eager loop")
+    log(f"[fig16] workload {w}, figcache_fast under {FIG16_SCHEDS[-1][0]} at "
+        f"{FIG16_EAGER_PER_CHANNEL} requests per channel: sim_scan == eager "
+        f"loop on every counter ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "wall": wall, "summary": summary}
 
 
 # ---------------------------------------------------------------------------
@@ -1698,6 +2136,9 @@ def main():
     phase_golden(dev)
     main_run = phase_main(dev)
     scan = phase_scan_timing(dev, lat)
+    ctl = phase_controllers(dev)
+    long_run = phase_long_trace(dev)
+    grid16 = phase_controller_grid(dev)
     figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
@@ -1729,7 +2170,14 @@ def main():
         "max_abs_err": main_run["max_abs_err"], "ms": fast["ms"],
         "plain_ms": main_run["eager_group_s"]["figcache_fast"] * 1e3,
         "bound_ms": fast["bound_ms"], "bound_by": "bytes",
-        "chain_bound_ms": fast["chain_ms"], "library_ms": None})
+        "chain_bound_ms": fast["chain_ms"], "library_ms": None,
+        # each simulator path's launches, counted from 0 around it
+        "path_launches": {"fig8_grid": main_run["launches"]["sim_scan"],
+                          "controllers": ctl["launches"],
+                          "long_trace": long_run["launches"],
+                          "controller_grid": grid16["launches"]}})
+    for path, n in rows[-1]["path_launches"].items():
+        check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step
     # launches figkv_tx instead: its figkv launches, 0, a field apart);
     # figkv_tx takes in the figkv step's two figaro_reloc launches

@@ -32,9 +32,12 @@ tests hold the replay kernel against it.  A step reads nothing back to the
 host — branches are ``torch.where`` — so on a CUDA device the loop only
 enqueues work.
 
+A chunked replay is ``sim_init`` -> ``resume`` per segment -> ``finalize``
+(``core/streaming.py``), one ``sim_scan`` launch per segment on the card.
+
 Not ported yet (ROADMAP.md, Queue 1): the telemetry windows
 (``static.telemetry > 0``) and the ``dense`` reference body, both of which
-raise; the jitted segment/telemetry entry points of the streaming layer.
+raise.
 
 Timestamps are int32 ticks (1/8 ns).  Latency accumulators are int32 ns.
 """
@@ -79,6 +82,14 @@ NOOP_ISSUE = int(fts_lib.BIG)
 LAT_SUM_CAP = (1 << 30) - 1
 
 _TRACE_DTYPES = (I32, I32, I32, I32, torch.bool, I32)
+
+
+def host_array(x) -> np.ndarray:
+    """A trace or state leaf as a numpy array on the host (a tensor on any
+    device is copied back; numpy leaves pass through)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def noop_pad(trace: Trace, length: int) -> Trace:
@@ -556,13 +567,17 @@ def _lay_out(trace: Trace, params: MechParams, state: SimState, dev):
     C = 1 if np.ndim(trace.t_issue) == 1 else int(trace.t_issue.shape[0])
     P = _n_params(params) or 1
     _check_state(state, P * C)
-    tr = _lane_trace(trace, P, dev)
-    lp = _lane_params(params, C, dev)
-    bank = BankState(*[x.to(dev).clone() if isinstance(x, torch.Tensor)
-                       else fts_lib.FTS(*[y.to(dev).clone() for y in x])
+    bank, cnt = clone_state(state, dev)
+    return _lane_trace(trace, P, dev), _lane_params(params, C, dev), bank, cnt
+
+
+def clone_state(state: SimState, device) -> SimState:
+    """A copy of ``state`` on ``device`` that a replay may update in place."""
+    bank = BankState(*[x.to(device).clone() if isinstance(x, torch.Tensor)
+                       else fts_lib.FTS(*[y.to(device).clone() for y in x])
                        for x in state.bank])
-    cnt = Counters(*[x.to(dev).clone() for x in state.cnt])
-    return tr, lp, bank, cnt
+    return SimState(bank, Counters(*[x.to(device).clone()
+                                     for x in state.cnt]))
 
 
 def _advance_eager(trace: Trace, static: StaticConfig, params: MechParams,

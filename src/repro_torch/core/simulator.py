@@ -10,16 +10,19 @@ conversion:
 
 Single-core results report IPC speedup vs Base; multiprogrammed results
 report weighted speedup (paper §7).  ``sweep`` groups a config list by its
-static structure and runs each group as one ``dram.run_sweep`` replay over
-a (params x channel) lane batch; ``sweep_traces`` also stacks workloads on
-the channel axis.  The counters come back to the host once per group and
-the IPC / energy post-processing is the JAX package's numpy code, so equal
-counters give exactly equal ``RunResult``s.
+static structure and controller, schedules the trace once per controller
+(``sched.policies.schedule``, host numpy) and runs each group as one
+``dram.run_sweep`` replay over a (params x channel) lane batch, or, with
+``chunk_len``, as a streamed replay (``streaming.sweep_stream``, one
+replay per segment); ``sweep_traces`` also stacks workloads on the channel
+axis.  The counters come back to the host once per group and the IPC /
+energy post-processing is the JAX package's numpy code, so equal counters
+give exactly equal ``RunResult``s.
 
-Not ported yet (ROADMAP.md, Queue 1): non-identity schedulers
-(``SchedConfig`` other than FCFS), streamed replay (``chunk_len``) and
-device-generated workloads (``WorkloadSpec`` entries, ``run_scenario``);
-each raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1): device-generated workloads
+(``WorkloadSpec`` entries, ``run_scenario``), which raise
+``NotImplementedError``, and telemetry windows, which raise
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from repro_torch.convert import counters_to_numpy
-from repro_torch.core import dram, traces
+from repro_torch.core import dram, streaming, traces
+from repro_torch.core.sched import policies as sched_policies
 from repro_torch.core.energy import ENERGY
 from repro_torch.core.timing import (DDR4, DRAMTimings, MechConfig,
                                      paper_config, shared_static,
@@ -119,19 +123,10 @@ def _host_counters(cnt: dram.Counters) -> dram.Counters:
     return dram.Counters(**counters_to_numpy(cnt))
 
 
-def _check_supported(cfgs: Sequence[MechConfig], chunk_len):
-    if chunk_len is not None:
-        raise NotImplementedError(f"streamed replay (chunk_len) {_LATER}")
-    for cfg in cfgs:
-        if not cfg.sched.is_identity:
-            raise NotImplementedError(
-                f"scheduler {cfg.sched} {_LATER}; only FCFS is ported")
-
-
 def run_mechanism(trace: dram.Trace, cfg: MechConfig,
                   apps: Sequence[traces.AppParams],
                   device=None) -> RunResult:
-    _check_supported([cfg], None)
+    trace = sched_policies.schedule(trace, cfg.sched)
     multi = np.ndim(trace.t_issue) == 2
     run = dram.run_channels if multi else dram.run_channel
     cnt = _host_counters(run(trace, cfg, device=device))
@@ -155,20 +150,36 @@ def _group_params(cfgs, idxs, t, device):
     return stack_params([cfgs[i].params(t, device) for i in idxs])
 
 
+def _dispatch_sweep(trace: dram.Trace, static, batch, chunk_len, device
+                    ) -> dram.Counters:
+    """One static group's replay: the monolithic ``dram.run_sweep`` or,
+    with ``chunk_len``, the segment-carried streamed replay, which is
+    bitwise-identical and holds O(chunk_len) of the trace on the device."""
+    if chunk_len is None:
+        return dram.run_sweep(trace, static, batch, device=device)
+    return streaming.sweep_stream(streaming.iter_chunks(trace, chunk_len),
+                                  static, batch, device=device)
+
+
 def sweep(trace: dram.Trace, cfgs: Sequence[MechConfig],
           apps: Sequence[traces.AppParams], t: DRAMTimings = DDR4,
           chunk_len: int | None = None, device=None) -> List[RunResult]:
     """Run an arbitrary config grid with one ``dram.run_sweep`` replay per
-    static structure.  Results come back in input order and are
-    bitwise-identical to per-config ``run_mechanism``."""
-    _check_supported(cfgs, chunk_len)
+    static structure and controller, over the trace scheduled once per
+    controller.  Results come back in input order and are
+    bitwise-identical to per-config ``run_mechanism``.  ``chunk_len``
+    streams each group through the segment-carried replay instead (same
+    results bitwise)."""
     multi = np.ndim(trace.t_issue) == 2
     n_channels = int(trace.t_issue.shape[0]) if multi else 1
     out: List[RunResult | None] = [None] * len(cfgs)
-    for (static, _sc), idxs in static_groups(cfgs).items():
-        cnts = _host_counters(dram.run_sweep(
-            trace, static, _group_params(cfgs, idxs, t, device),
-            device=device))
+    scheduled: Dict[object, dram.Trace] = {}   # host pass once per controller
+    for (static, sc), idxs in static_groups(cfgs).items():
+        if sc not in scheduled:
+            scheduled[sc] = sched_policies.schedule(trace, sc)
+        cnts = _host_counters(_dispatch_sweep(
+            scheduled[sc], static, _group_params(cfgs, idxs, t, device),
+            chunk_len, device))
         results = _results_from_counters_batch(
             cnts, [cfgs[i] for i in idxs], apps, n_channels)
         for j, i in enumerate(idxs):
@@ -183,8 +194,9 @@ def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
     per static structure.  Workloads stack on the channel axis ((T,) traces
     to (W, T), (C, T) traces to (W*C, T)); unequal lengths are right-padded
     with no-ops.  Returns ``results[w][i]``, bitwise-equal to per-workload
-    ``sweep`` calls."""
-    _check_supported(cfgs, chunk_len)
+    ``sweep`` calls.  Each workload is scheduled before the no-op padding,
+    so padding stays a suffix; ``chunk_len`` streams the stacked workloads
+    as ``sweep`` does."""
     trs = list(trs)
     if not trs:
         raise ValueError("need at least one workload")
@@ -202,16 +214,25 @@ def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
         raise ValueError("traces must share a channel count")
     W = len(trs)
     t_max = max(tr.t_issue.shape[-1] for tr in trs)
-    padded = [dram.noop_pad(dram.Trace(*[np.asarray(x) for x in tr]), t_max)
-              for tr in trs]
     join = np.concatenate if multi else np.stack
-    flat = dram.Trace(*[join(xs, axis=0) for xs in zip(*padded)])
+    stacked: Dict[object, dram.Trace] = {}
+
+    def flat_for(sc) -> dram.Trace:
+        """The W traces under controller ``sc``, channel-stacked (memoized
+        per controller)."""
+        if sc not in stacked:
+            padded = [dram.noop_pad(dram.Trace(*[
+                np.asarray(x) for x in sched_policies.schedule(tr, sc)]),
+                t_max) for tr in trs]
+            stacked[sc] = dram.Trace(*[join(xs, axis=0)
+                                       for xs in zip(*padded)])
+        return stacked[sc]
 
     out: List[List[RunResult | None]] = [[None] * len(cfgs) for _ in range(W)]
-    for (static, _sc), idxs in static_groups(cfgs).items():
-        cnts = _host_counters(dram.run_sweep(
-            flat, static, _group_params(cfgs, idxs, t, device),
-            device=device))                                   # (P, W*C, ...)
+    for (static, sc), idxs in static_groups(cfgs).items():
+        cnts = _host_counters(_dispatch_sweep(
+            flat_for(sc), static, _group_params(cfgs, idxs, t, device),
+            chunk_len, device))                               # (P, W*C, ...)
         for w in range(W):
             # slice workload w back out; single-channel inputs also drop the
             # stacking axis so results are shaped exactly like plain `sweep`

@@ -98,12 +98,10 @@ MECHANISMS = ("base", "lisa_villa", "figcache_slow", "figcache_fast",
 
 @dataclasses.dataclass(frozen=True)
 class SchedConfig:
-    """Memory-controller scheduling discipline.
-
-    Only the identity controller (FCFS without write drain, the default) is
-    ported: the simulator entry points raise ``NotImplementedError`` on any
-    other (see ROADMAP.md, Queue 1).  The knobs are kept so configs compare
-    and hash like the JAX package's."""
+    """Memory-controller scheduling discipline (DESIGN.md §10): FCFS or
+    FR-FCFS over a ``queue_depth`` transaction queue with a starvation
+    cap, optionally behind write-drain batching.  ``core/sched/policies``
+    realizes it as a host-side service-order permutation."""
     policy: str = "fcfs"
     queue_depth: int = 32
     starve_cap: int = 16

@@ -4,8 +4,10 @@ A verbatim copy of the numpy application model of ``repro.core.traces``
 (``app_params`` / ``gen_core_stream`` / ``build_trace`` /
 ``eight_core_workloads``), so the port replays bitwise-identical traces.
 Traces stay numpy arrays on the host; the simulator moves them to the
-device once per run (``dram.Trace``).  The chunk codec of the JAX package
-is not ported yet (ROADMAP.md, Queue 1).
+device once per run (``dram.Trace``).  The chunk codec (``encode_trace`` /
+``decode_chunk``) compresses a stream for the chunked replay of
+``core/streaming.py``: encoding is the JAX package's numpy, decoding runs
+as torch ops on the device.
 
 The paper drives Ramulator with Pin traces of 20 applications (Table 2).
 Those traces are not distributed, so parameterized streams preserve the
@@ -17,11 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import List, NamedTuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.dram import NOOP_ISSUE, Trace
+from repro_torch.core.dram import NOOP_ISSUE, Trace, host_array
 from repro_torch.core.timing import GEOM, TICKS_PER_NS
+from repro_torch.device import resolve_device
 
 INTENSIVE = ["zeusmp", "leslie3d", "mcf", "GemsFDTD", "libquantum",
              "bwaves", "lbm", "com", "tigr", "mum"]
@@ -233,3 +238,171 @@ def eight_core_workloads():
             rng.shuffle(names)
             out.append((f"W{frac}-{w}", frac, [app_params(n) for n in names]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Chunk codec (DESIGN.md §13): fixed-shape delta-time / page-cluster chunks.
+
+CHUNK_LEN = 1 << 16       # requests per chunk (VMEM-friendly default)
+MAX_CLUSTERS = 1024       # per-chunk (bank, row) page-cluster table entries
+FLAG_WRITE = 1            # TraceChunk.flags bit 0
+FLAG_FILLER = 2           # TraceChunk.flags bit 1 — no-op sentinel tail fill
+
+
+class TraceChunk(NamedTuple):
+    """One fixed-shape compressed chunk of a single channel's stream.
+
+    ~7 bytes/request against the 21 of raw ``Trace`` leaves: issue times
+    as int16 deltas off a per-chunk int32 base (``t[i] = base_t +
+    cumsum(dt)[i]``, ``dt[0] == 0``), page addresses as uint16 indices
+    into a per-chunk first-occurrence table of packed ``bank << 16 | row``
+    ids.  Requests past ``n_real`` are fillers (``FLAG_FILLER``) that
+    decode to no-op sentinel requests — chunk-interior no-ops once chunks
+    are concatenated, inert by the DESIGN.md §9 contract.  All leaves are
+    numpy arrays; ``decode_chunk`` moves them to the device as they are
+    (int16 / uint8, the uint16 fields as their int16 bit pattern).
+    """
+    base_t: np.ndarray    # ()  int32 — absolute tick of the first request
+    dt: np.ndarray        # (L,) int16 — delta from the previous request
+    cl: np.ndarray        # (L,) uint16 — index into ``clusters``
+    col: np.ndarray       # (L,) uint8
+    core: np.ndarray      # (L,) uint8
+    flags: np.ndarray     # (L,) uint8 — FLAG_WRITE | FLAG_FILLER
+    clusters: np.ndarray  # (K,) int32 — packed ``bank << 16 | row``
+    n_real: np.ndarray    # ()  int32 — requests before the filler tail
+
+
+def _cluster_ranks(page: np.ndarray):
+    """Per-request first-occurrence rank + the table in rank order.
+    Ranks are monotone in first-occurrence position, so truncating the
+    window at the first rank >= K leaves every surviving rank < K with
+    its first occurrence inside the truncated window."""
+    uniq, first, inv = np.unique(page, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(order.size, dtype=np.int64)
+    rank[order] = np.arange(order.size)
+    return rank[inv], uniq[order]
+
+
+def encode_trace(trace: Trace, chunk_len: int = CHUNK_LEN,
+                 max_clusters: int = MAX_CLUSTERS) -> List[TraceChunk]:
+    """Compress a (T,) request stream into fixed-shape ``TraceChunk``s.
+
+    Exact for EVERY input: any request the encoding cannot represent —
+    a time delta outside int16 (including the negative deltas a scheduled
+    trace carries), a page past the ``max_clusters`` table — terminates
+    the chunk early with no-op filler tail and restarts the next chunk
+    with a fresh absolute base and an empty cluster table.  Input no-op
+    padding requests are dropped (they are padding, not data; the decoder
+    re-synthesizes fillers as needed), so
+    ``decode_trace(encode_trace(tr)) == tr`` up to no-op requests.
+    """
+    assert chunk_len >= 1 and 1 <= max_clusters <= (1 << 16)
+    t = host_array(trace.t_issue).astype(np.int64)
+    assert t.ndim == 1, "encode_trace takes one channel; see core/streaming"
+    keep = np.flatnonzero(t < NOOP_ISSUE)
+    t = t[keep]
+    bank = host_array(trace.bank).astype(np.int64)[keep]
+    row = host_array(trace.row).astype(np.int64)[keep]
+    col = host_array(trace.col).astype(np.int64)[keep]
+    wr = host_array(trace.is_write).astype(bool)[keep]
+    core = host_array(trace.core).astype(np.int64)[keep]
+    assert bank.size == 0 or (
+        bank.min() >= 0 and bank.max() < (1 << 15)
+        and row.min() >= 0 and row.max() < (1 << 16)
+        and col.min() >= 0 and col.max() < (1 << 8)
+        and core.min() >= 0 and core.max() < (1 << 8)), \
+        "trace fields exceed the codec's packed ranges"
+    page = (bank << 16) | row
+
+    chunks: List[TraceChunk] = []
+    pos, n = 0, t.size
+    while pos < n:
+        take = min(chunk_len, n - pos)
+        tt = t[pos:pos + take]
+        dt = np.diff(tt, prepend=tt[0])
+        bad = np.flatnonzero((dt < -(1 << 15)) | (dt >= (1 << 15)))
+        if bad.size:
+            take = int(bad[0])          # dt[0] == 0, so take >= 1
+        cl, table = _cluster_ranks(page[pos:pos + take])
+        over = np.flatnonzero(cl >= max_clusters)
+        if over.size:
+            take = int(over[0])         # rank 0 < max_clusters, so >= 1
+            cl, table = cl[:take], table[:take]
+        table = table[:max_clusters]
+
+        L, K = chunk_len, max_clusters
+        sl = slice(pos, pos + take)
+        dt_o = np.zeros(L, np.int16)
+        dt_o[:take] = dt[:take]
+        cl_o = np.zeros(L, np.uint16)
+        cl_o[:take] = cl[:take]
+        col_o = np.zeros(L, np.uint8)
+        col_o[:take] = col[sl]
+        core_o = np.zeros(L, np.uint8)
+        core_o[:take] = core[sl]
+        flags = np.full(L, FLAG_FILLER, np.uint8)
+        flags[:take] = wr[sl].astype(np.uint8) * FLAG_WRITE
+        clusters = np.zeros(K, np.int32)
+        clusters[:table.size] = table
+        chunks.append(TraceChunk(
+            base_t=np.int32(tt[0]), dt=dt_o, cl=cl_o, col=col_o,
+            core=core_o, flags=flags, clusters=clusters,
+            n_real=np.int32(take)))
+        pos += take
+    return chunks
+
+
+def _on(x, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(x))
+    if a.dtype == np.uint16:              # torch has no uint16 arithmetic:
+        a = a.view(np.int16)              # move the bits, widen on device
+    return torch.from_numpy(a).to(device)
+
+
+def decode_chunk(chunk: TraceChunk, device=None) -> Trace:
+    """Decode one chunk into (L,) ``Trace`` tensors on ``device`` — a few
+    torch ops, the same for every chunk of a stream (fixed shapes by
+    construction).  Filler entries decode to no-op sentinel requests with
+    neutral fields, exactly ``dram.noop_pad``'s convention."""
+    dev = resolve_device(device)
+    i32 = torch.int32
+    flags = _on(chunk.flags, dev).to(i32)
+    filler = (flags & FLAG_FILLER) != 0
+    dt = _on(chunk.dt, dev).to(i32)
+    # int32 wraparound as the JAX package's int32 cumsum (the int64 sum
+    # truncates to the same bits)
+    tt = (torch.cumsum(dt, dim=0) + int(np.asarray(chunk.base_t))).to(i32)
+    cl = _on(chunk.cl, dev).to(i32) & 0xFFFF     # uint16 widened to int32
+    packed = _on(chunk.clusters, dev)[cl.long()]
+
+    def neutral(x):
+        return torch.where(filler, 0, x.to(i32))
+
+    return Trace(
+        t_issue=torch.where(filler, NOOP_ISSUE, tt),
+        bank=neutral(packed >> 16),
+        row=neutral(packed & 0xFFFF),
+        col=neutral(_on(chunk.col, dev)),
+        is_write=~filler & ((flags & FLAG_WRITE) != 0),
+        core=neutral(_on(chunk.core, dev)),
+    )
+
+
+def decode_trace(chunks: List[TraceChunk], device=None) -> Trace:
+    """Host-side roundtrip: decode on ``device`` + concatenate + strip
+    fillers, as numpy leaves.  The codec identity
+    ``decode_trace(encode_trace(tr)) == tr`` (for clean traces) is pinned by
+    ``tests/test_torch_streaming.py``."""
+    parts = [Trace(*[host_array(x) for x in decode_chunk(c, device)])
+             for c in chunks]
+    cat = {f: np.concatenate([getattr(p, f) for p in parts])
+           for f in Trace._fields}
+    keep = np.flatnonzero(cat["t_issue"] < NOOP_ISSUE)
+    return Trace(**{f: v[keep] for f, v in cat.items()})
+
+
+def encoded_nbytes(chunks: List[TraceChunk]) -> int:
+    """On-device footprint of an encoded stream (compression reporting)."""
+    return sum(sum(np.asarray(leaf).nbytes for leaf in c) for c in chunks)

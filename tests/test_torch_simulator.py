@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import simulator as js
+from repro.core import timing as jt
 from repro.core import traces as jtr
 from repro_torch.core import simulator as ps
 from repro_torch.core import timing as pt
@@ -77,15 +78,48 @@ def test_sweep_traces_ragged_single_channel():
             _assert_result_equal(one[i], res[w][i], ("ragged", w, i))
 
 
-def test_unported_simulator_paths_raise():
-    a = ptr.app_params("mcf")
-    tr = ptr.build_trace([a], 1, 64, 1)
+def test_sweep_with_write_drain_matches_jax():
+    """A write-drain controller (once refused by the port) schedules the
+    trace on the host and replays it: RunResults equal to the JAX
+    package's."""
+    a_p, a_j = ptr.app_params("mcf"), jtr.app_params("mcf")
+    tr = ptr.build_trace([a_p], 1, 64, 1)
     drain = dataclasses.replace(pt.paper_config("base"),
                                 sched=pt.SchedConfig(write_drain=True))
+    ref = js.sweep(type(tr)(*tr), [dataclasses.replace(
+        jt.paper_config("base"), sched=jt.SchedConfig(write_drain=True))],
+        (a_j,))
+    got = ps.sweep(tr, [drain], (a_p,), device=CPU)
+    _assert_result_equal(ref[0], got[0], "drain")
+
+
+def test_sweep_chunk_len_matches_jax():
+    """A streamed sweep (``chunk_len``, once refused by the port) equals
+    the monolithic sweep and the JAX package's streamed sweep."""
+    a_p, a_j = ptr.app_params("mcf"), jtr.app_params("mcf")
+    tr = ptr.build_trace([a_p], 1, 64, 1)
+    got = ps.sweep(tr, [pt.paper_config("base")], (a_p,), chunk_len=16,
+                   device=CPU)
+    ref = js.sweep(type(tr)(*tr), [jt.paper_config("base")], (a_j,),
+                   chunk_len=16)
+    _assert_result_equal(ref[0], got[0], "chunked")
+    mono = ps.sweep(tr, [pt.paper_config("base")], (a_p,), device=CPU)
+    _assert_result_equal(mono[0], got[0], "mono")
+
+
+def test_unported_simulator_paths_raise():
+    """What is still unported raises with a pointer to ROADMAP.md:
+    device-generated workloads (WorkloadSpec entries, run_scenario) and
+    telemetry windows."""
+    a = ptr.app_params("mcf")
+    tr = ptr.build_trace([a], 1, 64, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.sweep(tr, [drain], (a,), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.sweep(tr, [pt.paper_config("base")], (a,), chunk_len=16,
-                 device=CPU)
+        ps.sweep_traces([tr, object()], [pt.paper_config("base")],
+                        [(a,), (a,)], device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.run_scenario(object(), device=CPU)
+    tel = pt.paper_config("base", telemetry=32)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ps.sweep(tr, [tel], (a,), device=CPU)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ps.sweep(tr, [tel], (a,), chunk_len=16, device=CPU)
