@@ -45,7 +45,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    device time per static group (CUDA events) beside its byte bound and
    its chain bound: T x a step's dependent round trips (CHAIN, counted
    from the code) at the L1, L2, store-reload and shuffle latencies that
-   the latency probe (csrc/latency_probe.cu) measures on the card;
+   the latency probe (csrc/latency_probe.cu) measures on the card; at
+   figcache_fast the telemetry instantiation (period 64) timed in turns
+   with the plain one, and ptxas's registers and spills of both;
 5. FIGCache-KV path: ``serve.demo_figkv`` at Qwen2-7B's full attention
    width (28 query / 4 KV heads, head_dim 128, bf16, default FIGKVConfig),
    batch 8, a 32768-token prompt and 256 decode steps; launch counts read
@@ -113,14 +115,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    requests per channel through ``simulator.sweep`` (10 launches a
    workload), its speedup summary; one group of workload 5 at 1024
    requests per channel held against the eager loop, bitwise;
-12. summary: one ``{"kernels": [...]}`` JSON line (device times from
+12. telemetry windows: the 24 GOLDEN combos and the interior no-op trace
+   at period 32 (SLO 40 ns) through ``dram.resume_tel`` (one launch of
+   sim_scan's telemetry instantiation, held against the eager loop on the
+   card on every state, telemetry and frame leaf, filler rows included)
+   and streamed by ``simulate_stream`` with an ``obs.WindowCollector`` at
+   1, 7, 64 and full, counters at the golden and series, cumulative
+   planes and final cursor equal across routes; then
+   benchmarks/fig_tail_latency.py's parameters (period 64, SLO 150 ns,
+   chunk 1024, base and figcache_fast) on phase 10's trace (W25-0, 4 x
+   65536): streamed (64 launches) against monolithic, bitwise per
+   channel, a 1024-request prefix against the eager loop, p50 / p90 /
+   p99 / p999 with their bucket brackets, the SLO rate and
+   figcache_fast's p99 gain; the tax at that trace's figcache_fast group
+   (CUDA events, in turns) and on the monolithic route's wall;
+13. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
    launches, 0, a field apart; sim_scan's launches on each simulator path
-   of phases 4 and 9-11, counted from 0 around it, in ``path_launches``),
+   of phases 4 and 9-12, counted from 0 around it, in ``path_launches``,
+   and its telemetry instantiation's time and tax, ``tel_ms`` /
+   ``tel_tax``),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -148,6 +166,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import (dram, simulator, streaming, timing,  # noqa: E402
                               traces)
 from repro_torch.core.sched import policies, wavefront  # noqa: E402
@@ -280,6 +299,13 @@ FIG16_SCHEDS = (
 )
 FIG16_WORKLOADS, FIG16_PER_CHANNEL, FIG16_EAGER_PER_CHANNEL = \
     (5, 17), 12288, 1024
+# telemetry windows: the GOLDEN combos at tests/test_obs.py's PERIOD (SLO
+# 40 ns, inside that trace's latencies), then benchmarks/fig_tail_latency.py's
+# PERIOD, SLO_NS, CHUNK and mechanisms on the long trace, a prefix of it
+# held against the eager loop
+TEL_GOLDEN_PERIOD, TEL_GOLDEN_SLO_NS = 32, 40
+TAIL_PERIOD, TAIL_SLO_NS, TAIL_CHUNK = 64, 150, 1024
+TAIL_MECHS, TAIL_EAGER_PREFIX = ("base", "figcache_fast"), 1024
 
 
 def log(msg):
@@ -1228,12 +1254,45 @@ def probe_latencies(dev, samples=5):
     return lat
 
 
+def scan_launch_ms(flat, cfg, dev, tel_period=0):
+    """Device ms of one sim_scan launch (CUDA events around the launch
+    alone) replaying ``flat`` under ``cfg``, on a fresh clone of the
+    initial state, with the telemetry instantiation at ``tel_period``
+    (0: off).  Returns (ms, the lane-layout inputs)."""
+    static = dataclasses.replace(cfg.static, telemetry=tel_period)
+    params = timing.stack_params([cfg.params(device=dev)])
+    state = dram.sim_init(static, channels=flat.t_issue.shape[0],
+                          device=dev)
+    tr, lp, st = dram._prepare(flat, params, state, dev)
+    tel = dram._open(static, st, tr.t_issue.shape[0])
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    scan_kernel.sim_scan(tr, lp, st.bank, st.cnt, static, dram.GEOM, tel)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), (tr, lp, st, tel)
+
+
+def tel_ring_bytes(tel) -> int:
+    """Bytes the telemetry instantiation adds to a launch's traffic: the
+    packed carry (open window, planes, closed count) read and written
+    once, the ring written once."""
+    n = sum(x.numel() * x.element_size() for x in tel)
+    ring = sum(x.numel() * x.element_size()
+               for x in (tel.buf_scalars, tel.buf_banks, tel.buf_hist))
+    return 2 * (n - ring) + ring
+
+
 def phase_scan_timing(dev, lat, samples=5):
     """sim_scan's device time per static group of the fig-8 grid (CUDA
     events around the launch alone, median of ``samples``, each launch on
     a fresh clone of the initial state), beside its byte bound and its
     chain bound (T x a step's dependent round trips, CHAIN, at the
-    latencies ``lat`` that ``probe_latencies`` measured)."""
+    latencies ``lat`` that ``probe_latencies`` measured).  At
+    figcache_fast the telemetry instantiation (period TAIL_PERIOD) is
+    timed in turns with it (off, on, on, off, ...)."""
     all_wl = traces.eight_core_workloads()
     t0 = time.perf_counter()
     trs = [traces.build_trace(all_wl[i][2], N_CHANNELS, PER_CHANNEL, 2)
@@ -1249,7 +1308,7 @@ def phase_scan_timing(dev, lat, samples=5):
         params = timing.stack_params([cfg.params(device=dev)])
         state = dram.sim_init(static, channels=flat.t_issue.shape[0],
                               device=dev)
-        tr, lp, bank0, cnt0 = dram._lay_out(flat, params, state, dev)
+        tr, lp, (bank0, cnt0, _) = dram._prepare(flat, params, state, dev)
         per = []
         for _ in range(samples):
             bank = dram.BankState(*[
@@ -1282,6 +1341,35 @@ def phase_scan_timing(dev, lat, samples=5):
                 f"{n} {k}" for k, n in chain.items() if n) +
             f"), {ms / chain_ms:.2f}x")
         del tr, lp, bank0, cnt0, bank, cnt
+    cfg = timing.paper_config("figcache_fast")
+    turns = {0: [], TAIL_PERIOD: []}
+    for i in range(2 * samples):
+        per = (0, TAIL_PERIOD, TAIL_PERIOD, 0)[i % 4]
+        ms, (tr, _, _, tel) = scan_launch_ms(flat, cfg, dev, per)
+        turns[per].append(ms)
+        if per:
+            ring = tel_ring_bytes(tel)
+    fast = out["figcache_fast"]
+    fast.update(off_turns_ms=statistics.median(turns[0]),
+                tel_ms=statistics.median(turns[TAIL_PERIOD]),
+                tel_samples=turns[TAIL_PERIOD], tel_bytes=ring,
+                tel_bound_ms=(fast["bytes"] + ring) / HBM_BYTES_PER_S * 1e3)
+    fast["tel_tax"] = fast["tel_ms"] / fast["off_turns_ms"] - 1
+    log(f"[scan] sim_scan figcache_fast, telemetry at period {TAIL_PERIOD} "
+        f"in turns with it off ({samples} each): on {fast['tel_ms']:.4f} ms "
+        f"({min(turns[TAIL_PERIOD]):.4f}-{max(turns[TAIL_PERIOD]):.4f}), "
+        f"off {fast['off_turns_ms']:.4f} ms ({min(turns[0]):.4f}-"
+        f"{max(turns[0]):.4f}): tax {100 * fast['tel_tax']:.2f} %; the ring "
+        f"and carry add {ring} bytes (byte bound "
+        f"{fast['tel_bound_ms'] * 1e3:.3f} us); the chain bound is "
+        f"unchanged (no step reads back what telemetry stores)")
+    for inst in (0, 1):
+        rep = _build.ptxas_report("sim_scan", f"sim_scan_kernelILb{inst}E")
+        fast[f"ptxas_tel{inst}"] = rep
+        log(f"[scan] ptxas, sim_scan telemetry "
+            f"{'on' if inst else 'off'} instantiation: {rep['registers']} "
+            f"registers, spill stores {rep['spill_stores']} B, spill loads "
+            f"{rep['spill_loads']} B")
     return out
 
 
@@ -1534,7 +1622,7 @@ def phase_long_trace(dev):
             f"{' + drain' if sc.write_drain else ''}: " +
             ", ".join(f"{m}={v:.4f}" for m, v in s.items()))
     return {"launches": launches, "routes": routes, "shares": shares,
-            "build_s": build_s}
+            "build_s": build_s, "trace": tr}
 
 
 # ---------------------------------------------------------------------------
@@ -1595,6 +1683,203 @@ def phase_controller_grid(dev):
         f"{FIG16_EAGER_PER_CHANNEL} requests per channel: sim_scan == eager "
         f"loop on every counter ({time.perf_counter() - t0:.1f} s)")
     return {"launches": launches, "wall": wall, "summary": summary}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: telemetry windows on the card
+
+def tel_leaves(tree):
+    out = []
+    dram._map(out.append, tree)
+    return out
+
+
+def collected(state, frames):
+    """A collector holding one replay's frames and final state."""
+    col = obs.WindowCollector()
+    col.add(frames)
+    col.close(state)
+    return col
+
+
+def same_collected(a, b, what, index=()):
+    """Two collectors' masked series, cumulative planes and final cursor,
+    bitwise (NaN for NaN in the derived rates)."""
+    sa, sb = a.series(index), b.series(index)
+    for k in sa:
+        check(np.array_equal(sa[k], sb[k], equal_nan=True),
+              f"{what}: series {k} differs")
+    for k, v in a.cumulative(index).items():
+        check(np.array_equal(v, b.cumulative(index)[k]),
+              f"{what}: cumulative {k} differs")
+    for x, y in zip(tel_leaves(a._final), tel_leaves(b._final)):
+        check(torch.equal(x, y), f"{what}: final telemetry cursor differs")
+
+
+def same_as_eager(trace, cfg, dev, lead, what):
+    """resume_tel (one sim_scan launch) against the eager loop on the
+    card: every state, telemetry and frame leaf, filler rows included.
+    Returns the kernel's (state, frames)."""
+    p = cfg.params(device=dev)
+    state0 = dram.sim_init(cfg.static, channels=lead[0] if lead else None,
+                           device=dev)
+    got = counted(lambda: dram.resume_tel(trace, cfg.static, p, state0,
+                                          device=dev), 1, what)
+    es, ef = dram._advance_eager(trace, cfg.static, p, state0, device=dev,
+                                 with_frames=True)
+    want = (es, dram._unlane(ef, lead))
+    for x, y in zip(tel_leaves(got), tel_leaves(want)):
+        check(x.shape == y.shape and torch.equal(x, y),
+              f"{what}: sim_scan's telemetry differs from the eager loop")
+    return got
+
+
+def phase_telemetry(dev, long_trace):
+    """Telemetry windows through sim_scan's telemetry instantiation: the
+    24 GOLDEN combos and the interior no-op trace monolithic (held against
+    the eager loop on the card) and streamed at 1/7/64/full, every series,
+    cursor and plane equal across routes and the counters at the golden;
+    then fig_tail_latency's parameters on the long trace, streamed at
+    TAIL_CHUNK and monolithic, its prefix against the eager loop, its
+    tail percentiles; then the telemetry tax at the long trace's
+    figcache_fast group and on the monolithic route's wall."""
+    t0 = time.perf_counter()
+    scan_kernel.COUNTER.launches = 0
+    routes = {}
+    combos = [(reuse_trace(), m, sid, want, (1, 7, 64, 320))
+              for (m, sid), want in GOLDEN.items()]
+    combos += [(interior_noop_trace(), m, "fcfs", want, (1, 7, 64, 136))
+               for m, want in INTERIOR_GOLDEN.items()]
+    t_eager = 0.0
+    for tr, mech, sid, want, chunks in combos:
+        cfg = dataclasses.replace(golden_config(mech, SCHEDS[sid]),
+                                  telemetry=TEL_GOLDEN_PERIOD,
+                                  slo_ns=TEL_GOLDEN_SLO_NS)
+        what = f"telemetry {mech} {sid}"
+        before = scan_kernel.COUNTER.launches
+        t1 = time.perf_counter()
+        state, frames = same_as_eager(policies.schedule(tr, cfg.sched), cfg,
+                                      dev, (), what)
+        t_eager += time.perf_counter() - t1
+        routes["monolithic"] = routes.get("monolithic", 0) + \
+            scan_kernel.COUNTER.launches - before
+        check(fingerprint(state.cnt) == want,
+              f"{what}: counters {fingerprint(state.cnt)} != golden")
+        mono = collected(state, frames)
+        n_real = int((tr.t_issue < dram.NOOP_ISSUE).sum())
+        for L in chunks:
+            col = obs.WindowCollector()
+            n_seg = -(-(n_real if not cfg.sched.is_identity
+                        else tr.t_issue.shape[-1]) // L)
+            before = scan_kernel.COUNTER.launches
+            cnt = counted(lambda: streaming.simulate_stream(
+                streaming.iter_chunks(tr, L), cfg, telemetry=col,
+                device=dev), n_seg, f"{what} chunk {L}")
+            routes[f"chunk {L}"] = routes.get(f"chunk {L}", 0) + \
+                scan_kernel.COUNTER.launches - before
+            check(fingerprint(cnt) == want, f"{what} chunk {L}: counters")
+            same_collected(mono, col, f"{what} chunk {L}")
+    torch.cuda.synchronize()
+    golden_s = time.perf_counter() - t0
+    log(f"[telemetry] {len(combos)} combos (24 GOLDEN of tests/test_obs.py, "
+        f"2 interior no-op) at period {TEL_GOLDEN_PERIOD}, SLO "
+        f"{TEL_GOLDEN_SLO_NS} ns: counters at the telemetry-off golden; "
+        f"monolithic == eager loop on the card on every state, telemetry "
+        f"and frame leaf ({t_eager:.1f} s of it); series, cumulative planes "
+        f"and final cursor equal at chunk 1/7/64/full; sim_scan launches "
+        f"{routes} in {golden_s:.1f} s")
+
+    # fig_tail_latency's parameters on the long trace (W25-0, 4 x 65536)
+    ltr, lead = long_trace, (N_CHANNELS,)
+    n_seg = LONG_PER_CHANNEL // TAIL_CHUNK
+    tails, walls = {}, {}
+    for mech in TAIL_MECHS:
+        cfg = timing.paper_config(mech, telemetry=TAIL_PERIOD,
+                                  slo_ns=TAIL_SLO_NS)
+        off = timing.paper_config(mech)
+        col = obs.WindowCollector()
+        before = scan_kernel.COUNTER.launches
+        _, stream_s, stream_peak = timed_route(lambda: counted(
+            lambda: streaming.simulate_stream(
+                streaming.iter_chunks(ltr, TAIL_CHUNK), cfg, telemetry=col,
+                device=dev), n_seg, f"tail {mech} streamed"))
+        routes[f"tail {mech} chunk {TAIL_CHUNK}"] = \
+            scan_kernel.COUNTER.launches - before
+        # the monolithic route with telemetry and without, in turns
+        runs = {"off": [], "on": []}
+        before = scan_kernel.COUNTER.launches
+        for which in ("off", "on", "on", "off"):
+            c = off if which == "off" else cfg
+            p = c.params(device=dev)
+            state0 = dram.sim_init(c.static, channels=N_CHANNELS, device=dev)
+            run = (lambda: dram.resume(ltr, c.static, p, state0, device=dev)) \
+                if which == "off" else \
+                (lambda: dram.resume_tel(ltr, c.static, p, state0, device=dev))
+            out, wall, peak = timed_route(lambda: counted(
+                run, 1, f"tail {mech} monolithic {which}"))
+            runs[which].append(wall)
+            if which == "on":
+                mono_out, mono_peak = out, peak
+        routes[f"tail {mech} monolithic (off, on, on, off)"] = \
+            scan_kernel.COUNTER.launches - before
+        mono = collected(*mono_out)
+        for c in range(N_CHANNELS):
+            same_collected(mono, col, f"tail {mech} channel {c}", (c,))
+        pre = dram.Trace(*[x[:, :TAIL_EAGER_PREFIX] for x in ltr])
+        same_as_eager(pre, cfg, dev, lead, f"tail {mech} prefix")
+        cum = col.cumulative()
+        hist = cum["hist"].sum(axis=(0, 1, 2))
+        reqs, viol = int(hist.sum()), int(cum["slo"].sum())
+        check(reqs == N_CHANNELS * LONG_PER_CHANNEL,
+              f"tail {mech}: histogram mass {reqs}")
+        pct = obs.latency.percentiles(hist)
+        n_win = sum(len(col.series((c,))["win_idx"])
+                    for c in range(N_CHANNELS))
+        tails[mech] = {"pct": pct, "slo_rate": viol / reqs,
+                       "violations": viol, "windows": n_win}
+        walls[mech] = {"stream_s": stream_s, "stream_peak": stream_peak,
+                       "mono_on_s": runs["on"], "mono_off_s": runs["off"],
+                       "mono_peak": mono_peak}
+        log(f"[telemetry] tail {mech} (W25-0, {N_CHANNELS} x "
+            f"{LONG_PER_CHANNEL}, period {TAIL_PERIOD}, SLO {TAIL_SLO_NS} "
+            f"ns): " + ", ".join(f"{q} {v.value:.1f} ns [{v.lo}, {v.hi}]"
+                                 for q, v in pct.items()) +
+            f"; over SLO {viol} of {reqs} ({viol / reqs:.6f}); {n_win} "
+            f"windows; streamed at {TAIL_CHUNK} == monolithic on every "
+            f"series, plane and cursor, the {TAIL_EAGER_PREFIX}-request "
+            f"prefix == the eager loop")
+        log(f"[telemetry] tail {mech} walls: streamed ({n_seg} launches) "
+            f"{stream_s:.3f} s, peak {stream_peak / 2**20:.2f} MiB; "
+            f"monolithic with telemetry {runs['on'][0]:.4f} / "
+            f"{runs['on'][1]:.4f} s (peak {mono_peak / 2**20:.2f} MiB), "
+            f"without {runs['off'][0]:.4f} / {runs['off'][1]:.4f} s")
+    gain = {q: tails["base"]["pct"][q].value /
+            tails["figcache_fast"]["pct"][q].value for q in ("p99", "p999")}
+    log(f"[telemetry] figcache_fast over base: p99 gain {gain['p99']:.4f}, "
+        f"p999 gain {gain['p999']:.4f}")
+
+    # the tax at the long trace's figcache_fast group (4 lanes x 65536
+    # steps), one launch each, in turns
+    fast = timing.paper_config("figcache_fast")
+    turns = {0: [], TAIL_PERIOD: []}
+    for per in (0, TAIL_PERIOD, TAIL_PERIOD, 0, 0, TAIL_PERIOD):
+        turns[per].append(scan_launch_ms(ltr, fast, dev, per)[0])
+    long_tax = {"off_ms": statistics.median(turns[0]),
+                "tel_ms": statistics.median(turns[TAIL_PERIOD])}
+    long_tax["tax"] = long_tax["tel_ms"] / long_tax["off_ms"] - 1
+    log(f"[telemetry] sim_scan at W25-0's figcache_fast group (N "
+        f"{N_CHANNELS}, T {LONG_PER_CHANNEL}), 3 launches each in turns: "
+        f"telemetry {long_tax['tel_ms']:.4f} ms {turns[TAIL_PERIOD]}, off "
+        f"{long_tax['off_ms']:.4f} ms {turns[0]}: tax "
+        f"{100 * long_tax['tax']:.2f} %")
+    torch.cuda.synchronize()
+    launches = scan_kernel.COUNTER.launches
+    secs = time.perf_counter() - t0
+    log(f"[telemetry] phase 12: {launches} sim_scan launches in "
+        f"{secs:.1f} s")
+    return {"launches": launches, "seconds": secs, "routes": routes,
+            "tails": tails, "gain": gain, "walls": walls,
+            "long_tax": long_tax}
 
 
 # ---------------------------------------------------------------------------
@@ -2139,6 +2424,7 @@ def main():
     ctl = phase_controllers(dev)
     long_run = phase_long_trace(dev)
     grid16 = phase_controller_grid(dev)
+    telem = phase_telemetry(dev, long_run.pop("trace"))
     figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
@@ -2171,11 +2457,18 @@ def main():
         "plain_ms": main_run["eager_group_s"]["figcache_fast"] * 1e3,
         "bound_ms": fast["bound_ms"], "bound_by": "bytes",
         "chain_bound_ms": fast["chain_ms"], "library_ms": None,
+        # the telemetry instantiation at period TAIL_PERIOD, timed in turns
+        # with the launch above; its byte bound counts the ring and carry
+        "tel_ms": fast["tel_ms"], "tel_tax": fast["tel_tax"],
+        "tel_bound_ms": fast["tel_bound_ms"],
+        "tel_long_ms": telem["long_tax"]["tel_ms"],
+        "tel_long_tax": telem["long_tax"]["tax"],
         # each simulator path's launches, counted from 0 around it
         "path_launches": {"fig8_grid": main_run["launches"]["sim_scan"],
                           "controllers": ctl["launches"],
                           "long_trace": long_run["launches"],
-                          "controller_grid": grid16["launches"]}})
+                          "controller_grid": grid16["launches"],
+                          "telemetry": telem["launches"]}})
     for path, n in rows[-1]["path_launches"].items():
         check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step

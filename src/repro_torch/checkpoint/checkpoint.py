@@ -43,7 +43,11 @@ class CheckpointError(RuntimeError):
 
 
 def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
-    """``(field path, leaf)`` of every leaf, depth first."""
+    """``(field path, leaf)`` of every leaf, depth first.  ``None`` is an
+    empty subtree, as in the JAX package (a ``SimState`` without its
+    telemetry cursor has no ``tel`` path)."""
+    if tree is None:
+        return []
     if hasattr(tree, "_fields"):
         items = zip(tree._fields, tree)
     elif isinstance(tree, (tuple, list)):
@@ -60,6 +64,8 @@ def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
 
 def _unflatten(like, leaves: List[Any]):
     """``like``'s structure with its leaves taken in order from ``leaves``."""
+    if like is None:
+        return None
     if hasattr(like, "_fields"):
         return type(like)(*[_unflatten(x, leaves) for x in like])
     if isinstance(like, (tuple, list)):

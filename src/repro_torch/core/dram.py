@@ -35,9 +35,16 @@ enqueues work.
 A chunked replay is ``sim_init`` -> ``resume`` per segment -> ``finalize``
 (``core/streaming.py``), one ``sim_scan`` launch per segment on the card.
 
-Not ported yet (ROADMAP.md, Queue 1): the telemetry windows
-(``static.telemetry > 0``) and the ``dense`` reference body, both of which
-raise.
+Telemetry windows (DESIGN.md §15/§16, ``static.telemetry`` = the window
+period in real requests): ``SimState.tel`` carries the open window and the
+cumulative latency-histogram planes across segments; ``resume_tel`` /
+``sweep_resume_tel`` also return the segment's closed windows as a
+``TelemetryFrame`` ring of ``W = min(T, T // period + 2) + 1`` rows.  Both
+routes run the same arithmetic: the eager loop's ``_telemetry_step`` and
+the ``sim_scan`` kernel's telemetry instantiation.
+
+Not ported yet (ROADMAP.md, Queue 1): the ``dense`` reference body, which
+raises.
 
 Timestamps are int32 ticks (1/8 ns).  Latency accumulators are int32 ns.
 """
@@ -53,7 +60,7 @@ from repro_torch.core.timing import (DDR4, GEOM, DRAMGeometry, DRAMTimings,
                                      MechConfig, MechParams, StaticConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fts_lookup.ops import fts_lookup_op
-from repro_torch.kernels.sim_scan.sim_scan import sim_scan
+from repro_torch.kernels.sim_scan.sim_scan import ring_rows, sim_scan
 
 I32 = torch.int32
 
@@ -80,6 +87,12 @@ NOOP_ISSUE = int(fts_lib.BIG)
 # Saturation ceiling of the per-core latency-sum counter (cap + the
 # per-step bound of simulated time == INT32_MAX, so the add never wraps).
 LAT_SUM_CAP = (1 << 30) - 1
+
+# Log2 latency-histogram buckets (DESIGN.md §16): bucket 0 holds
+# lat_ns == 0, bucket b >= 1 holds [2**(b-1), 2**b - 1] (the bit length of
+# the latency, clipped into the last bucket).  ``obs/latency.py`` holds the
+# host-side mirror.
+HIST_BUCKETS = 28
 
 _TRACE_DTYPES = (I32, I32, I32, I32, torch.bool, I32)
 
@@ -141,12 +154,185 @@ class Counters(NamedTuple):
     t_end: torch.Tensor           # ticks
 
 
+class TelemetryWindows(NamedTuple):
+    """Per-window deltas of the interesting counters (DESIGN.md §15).
+    ``win_idx`` is the ordinal of the accumulating window: window ``w``
+    covers real requests ``[w * period, (w + 1) * period)``.  Lane layout:
+    the 12 scalar fields ``(N,)``, ``w_bank_issues`` ``(N, n_banks)`` and
+    ``w_hist`` ``(N, HIST_BUCKETS)`` (frames add a window axis after N).
+    Every lane clamps at ``LAT_SUM_CAP`` like ``Counters.lat_sum_ns``."""
+    win_idx: torch.Tensor
+    w_reqs: torch.Tensor
+    w_reads: torch.Tensor
+    w_writes: torch.Tensor
+    w_row_hits: torch.Tensor
+    w_cache_hits: torch.Tensor
+    w_ins: torch.Tensor
+    w_reloc_blocks: torch.Tensor
+    w_lat_ns: torch.Tensor      # summed request latency (ns, clamped)
+    w_bus_wait: torch.Tensor    # ticks bursts waited on the busy data bus
+    w_mshr_wait: torch.Tensor   # ticks requests stalled on a full MSHR
+    w_slo: torch.Tensor         # requests over MechParams.slo_ns
+    w_bank_issues: torch.Tensor
+    w_hist: torch.Tensor
+
+
+class TelemetryFrame(NamedTuple):
+    """One segment's closed windows, oldest first: ``win`` leaves carry a
+    window axis of ``W = min(T, T // period + 2) + 1`` rows; rows at or
+    past the closed count are ``valid=False`` filler that hosts mask out.
+    The open window stays in ``SimState.tel``."""
+    valid: torch.Tensor
+    win: TelemetryWindows
+
+
+class TelemetryState(NamedTuple):
+    """The cross-segment telemetry cursor (``SimState.tel``): the open
+    window and the run-cumulative §16 planes, ``hist`` ``(N, 2, n_cores,
+    HIST_BUCKETS)`` (plane 0 reads, plane 1 writes) and ``slo``
+    ``(N, n_cores)`` (requests over ``slo_ns``, counted exactly)."""
+    win: TelemetryWindows
+    hist: torch.Tensor
+    slo: torch.Tensor
+
+
+# the scalar accumulators, in their packed-lane order
+_TEL_PLANES = ("w_bank_issues", "w_hist")
+_TEL_SCALARS = tuple(f for f in TelemetryWindows._fields
+                     if f not in _TEL_PLANES)
+
+
+class TelScan(NamedTuple):
+    """The packed in-replay telemetry carry of N lanes, and the
+    ``sim_scan`` kernel's telemetry arguments in this order: the open
+    window (``scalars`` (N, 12) in ``_TEL_SCALARS`` order, ``bank_issues``,
+    ``hist_win``), the cumulative planes, the segment's ring of closed
+    windows (``buf_*`` (N, W, ...), row 0 seeded with the entering window)
+    and the closed count ``n`` (N,)."""
+    scalars: torch.Tensor
+    bank_issues: torch.Tensor
+    hist_win: torch.Tensor
+    hist: torch.Tensor
+    slo: torch.Tensor
+    buf_scalars: torch.Tensor
+    buf_banks: torch.Tensor
+    buf_hist: torch.Tensor
+    n: torch.Tensor
+
+
 class SimState(NamedTuple):
     """The full carried state of a replay, every leaf with a leading lane
-    axis ``(N, ...)``.  (The JAX package's third field, the telemetry
-    cursor, comes with the telemetry port.)"""
+    axis ``(N, ...)``.  ``tel`` is the telemetry cursor, ``None`` unless
+    ``static.telemetry`` is set."""
     bank: BankState
     cnt: Counters
+    tel: Optional[TelemetryState] = None
+
+
+def _map(fn, tree):
+    """``tree`` (nested NamedTuples of tensors, ``None`` subtrees kept)
+    with ``fn`` applied to every tensor leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_map(fn, x) for x in tree])
+    return type(tree)(_map(fn, x) for x in tree)
+
+
+def init_telemetry(geom: DRAMGeometry = GEOM, lanes: int = 1,
+                   device=None) -> TelemetryState:
+    dev = resolve_device(device)
+
+    def z(*shape):
+        return torch.zeros((lanes,) + shape, dtype=I32, device=dev)
+
+    win = TelemetryWindows(*[z() for _ in _TEL_SCALARS], z(geom.n_banks),
+                           z(HIST_BUCKETS))
+    return TelemetryState(win, z(2, geom.n_cores, HIST_BUCKETS),
+                          z(geom.n_cores))
+
+
+def _tel_open(tel: TelemetryState, T: int, period: int) -> TelScan:
+    """Pack a (freshly cloned) cursor for a T-step segment."""
+    win = tel.win
+    scalars = torch.stack([getattr(win, f) for f in _TEL_SCALARS], dim=-1)
+    N, W = scalars.shape[0], ring_rows(T, period)
+
+    def ring(row):
+        buf = row.new_zeros((N, W) + tuple(row.shape[1:]))
+        buf[:, 0] = row
+        return buf
+
+    return TelScan(scalars, win.w_bank_issues.contiguous(),
+                   win.w_hist.contiguous(), tel.hist.contiguous(),
+                   tel.slo.contiguous(), ring(scalars),
+                   ring(win.w_bank_issues), ring(win.w_hist),
+                   torch.zeros((N,), dtype=I32, device=scalars.device))
+
+
+def _tel_unpack(scalars, banks, hist) -> TelemetryWindows:
+    return TelemetryWindows(*scalars.unbind(-1), banks, hist)
+
+
+def _tel_close(sc: TelScan):
+    """(the carried cursor, the segment's frame), lane layout."""
+    W = sc.buf_scalars.shape[1]
+    valid = torch.arange(W, device=sc.n.device) < sc.n[:, None]
+    return (TelemetryState(_tel_unpack(sc.scalars, sc.bank_issues,
+                                       sc.hist_win), sc.hist, sc.slo),
+            TelemetryFrame(valid, _tel_unpack(sc.buf_scalars, sc.buf_banks,
+                                              sc.buf_hist)))
+
+
+def hist_bucket(lat_ns: torch.Tensor) -> torch.Tensor:
+    """The §16 bucket of an int32 latency: its bit length (``32 - clz``,
+    read off the float64 exponent, exact for every int32), clipped into
+    the last bucket."""
+    bits = torch.frexp(lat_ns.clamp(min=0).double()).exponent
+    return bits.clamp(max=HIST_BUCKETS - 1).to(I32)
+
+
+def _telemetry_step(tel: TelScan, period: int, *, lanes, real, bank, core,
+                    is_write, row_hit, hit, n_ins, moved, lat_ns, bus_wait,
+                    mshr_wait, slo_ns, step_id) -> TelScan:
+    """Advance every lane's window accumulators by one (possibly no-op)
+    request, as the JAX package's ``_telemetry_step``: a real request at a
+    window boundary closes the window, the lanes reset (``win_idx`` to the
+    new ordinal), the deltas fold in and the lane vector clamps at
+    ``LAT_SUM_CAP``; the planes take scatter-adds; every step writes the
+    post-update window to the live ring row ``n``.  No-ops change
+    nothing but the clamp."""
+    vec = tel.scalars
+    r32 = real.to(I32)
+    bucket = hist_bucket(lat_ns).long()
+    over = real & (slo_ns > 0) & (lat_ns > slo_ns)
+    w = vec[:, 0] + 1                      # lane 0 == win_idx
+    crossed = real & (step_id >= w * period)
+    n = tel.n + crossed.to(I32)
+    reset = torch.zeros_like(vec)
+    reset[:, 0] = w
+    zero = torch.zeros_like(r32)
+    delta = torch.stack([
+        zero, r32, (~is_write & real).to(I32), (is_write & real).to(I32),
+        (row_hit & real).to(I32), hit.to(I32), n_ins, moved,
+        torch.where(real, lat_ns, 0), torch.where(real, bus_wait, 0),
+        torch.where(real, mshr_wait, 0), over.to(I32)], dim=1)
+    vec = (torch.where(crossed[:, None], reset, vec) + delta).clamp_(
+        max=LAT_SUM_CAP)
+    banks = torch.where(crossed[:, None], 0, tel.bank_issues)
+    banks[lanes, bank] += r32
+    hist_w = torch.where(crossed[:, None], 0, tel.hist_win)
+    hist_w[lanes, bucket] += r32
+    tel.hist[lanes, is_write.long(), core, bucket] += r32
+    tel.slo[lanes, core] += over.to(I32)
+    nl = n.long()
+    tel.buf_scalars[lanes, nl] = vec
+    tel.buf_banks[lanes, nl] = banks
+    tel.buf_hist[lanes, nl] = hist_w
+    return tel._replace(scalars=vec, bank_issues=banks, hist_win=hist_w,
+                        n=n)
 
 
 def _lanes_of(x: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -427,9 +613,6 @@ def _check_ported(static: StaticConfig, variant: str):
     if variant != "fused":
         raise ValueError(f"scan variant {variant!r} is not ported to "
                          "repro_torch; only 'fused' is (see ROADMAP.md)")
-    if static.telemetry:
-        raise ValueError("telemetry windows are not ported to repro_torch "
-                         "yet (see ROADMAP.md, Queue 1); set telemetry=0")
 
 
 def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
@@ -437,12 +620,14 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
     """Build the step function for one static structure.
 
     ``step(params, carry, req) -> carry`` with ``params`` leaves ``(N,)``,
-    ``carry = (BankState, Counters)`` and ``req`` a ``Trace`` of ``(N,)``
-    rows.  The bank state is updated in place; the counters are rebuilt
-    (their per-core planes updated in place).
+    ``carry = (BankState, Counters, TelScan or None)`` and ``req`` a
+    ``Trace`` of ``(N,)`` rows.  The bank state is updated in place; the
+    counters are rebuilt (their per-core planes updated in place); with
+    ``static.telemetry`` the windows advance after the counters, as in the
+    JAX package's step.
 
-    Only the ``fused`` body is ported; ``dense`` and telemetry windows
-    raise ``ValueError`` (ROADMAP.md, Queue 1)."""
+    Only the ``fused`` body is ported; ``dense`` raises ``ValueError``
+    (ROADMAP.md, Queue 1)."""
     _check_ported(static, variant)
     decide = make_decision_fn(static, geom)
     max_slots = static.max_slots if static.has_cache else 1
@@ -450,7 +635,7 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
     consts: Dict[tuple, _Consts] = {}
 
     def step(params: MechParams, carry, req: Trace):
-        state, cnt = carry
+        state, cnt, tel = carry
         p = params
         n = req.bank.shape[0]
         key = (req.bank.device, n)
@@ -514,7 +699,17 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
             t_end=torch.maximum(cnt.t_end, torch.where(
                 real, torch.maximum(done, serv_end + dec.reloc_cost), 0)),
         )
-        return state, cnt
+
+        # ---- telemetry windows (DESIGN.md §15/§16) ------------------------
+        if static.telemetry:
+            tel = _telemetry_step(
+                tel, static.telemetry, lanes=lanes, real=real, bank=b,
+                core=core, is_write=req.is_write, row_hit=dec.row_hit,
+                hit=dec.hit, n_ins=dec.n_ins, moved=dec.moved, lat_ns=lat_ns,
+                bus_wait=done - (t0 + dec.pre_act + p.cas + p.bl),
+                mshr_wait=t_ready - req.t_issue, slo_ns=p.slo_ns,
+                step_id=step_id)
+        return state, cnt, tel
 
     return step
 
@@ -544,9 +739,10 @@ def _lane_params(params: MechParams, channels: int, device) -> MechParams:
     return MechParams(*out)
 
 
-def _unlane(cnt: Counters, dims: tuple) -> Counters:
-    """Lane-layout counters (N, ...) -> the JAX package's layout."""
-    return Counters(*[x.reshape(dims + tuple(x.shape[1:])) for x in cnt])
+def _unlane(tree, dims: tuple):
+    """Lane-layout counters, cursor or frames (N, ...) -> the JAX
+    package's layout ``dims + (...)``."""
+    return _map(lambda x: x.reshape(dims + tuple(x.shape[1:])), tree)
 
 
 def _n_params(params: MechParams) -> Optional[int]:
@@ -561,51 +757,76 @@ def _check_state(state: SimState, lanes: int):
                          f"batch need {lanes}")
 
 
-def _lay_out(trace: Trace, params: MechParams, state: SimState, dev):
+def _prepare(trace: Trace, params: MechParams, state: SimState, dev):
     """The trace and params in lane layout on ``dev`` and a clone of
     ``state`` there, over ``P x C`` lanes."""
     C = 1 if np.ndim(trace.t_issue) == 1 else int(trace.t_issue.shape[0])
     P = _n_params(params) or 1
     _check_state(state, P * C)
-    bank, cnt = clone_state(state, dev)
-    return _lane_trace(trace, P, dev), _lane_params(params, C, dev), bank, cnt
+    return (_lane_trace(trace, P, dev), _lane_params(params, C, dev),
+            clone_state(state, dev))
 
 
 def clone_state(state: SimState, device) -> SimState:
     """A copy of ``state`` on ``device`` that a replay may update in place."""
-    bank = BankState(*[x.to(device).clone() if isinstance(x, torch.Tensor)
-                       else fts_lib.FTS(*[y.to(device).clone() for y in x])
-                       for x in state.bank])
-    return SimState(bank, Counters(*[x.to(device).clone()
-                                     for x in state.cnt]))
+    return _map(lambda x: x.to(device).clone(), state)
+
+
+def _open(static: StaticConfig, st: SimState, T: int) -> Optional[TelScan]:
+    """The packed telemetry carry of a T-step segment (None without
+    telemetry).  A telemetry replay needs the cursor ``sim_init`` makes."""
+    if not static.telemetry:
+        return None
+    if st.tel is None:
+        raise ValueError("a telemetry replay needs SimState.tel: make the "
+                         "state with sim_init of the telemetry config")
+    return _tel_open(st.tel, T, static.telemetry)
+
+
+def _close(st: SimState, tel: Optional[TelScan], with_frames: bool):
+    if tel is not None:
+        cursor, frames = _tel_close(tel)
+        st = st._replace(tel=cursor)
+    else:
+        frames = None
+    return (st, frames) if with_frames else st
 
 
 def _advance_eager(trace: Trace, static: StaticConfig, params: MechParams,
                    state: SimState, variant: str = "fused",
-                   device=None) -> SimState:
+                   device=None, with_frames: bool = False):
     """Clone ``state`` to ``device`` and run every request of ``trace``
     (leaves (T,)/(C, T)) through the eager step, one request at a time:
-    the CPU path, and the replay kernel's plain version on the card."""
+    the CPU path, and the replay kernel's plain version on the card.
+    Returns the new ``SimState``, or ``(SimState, frames)`` in lane layout
+    (``None`` without telemetry) with ``with_frames``."""
     dev = resolve_device(device)
     step = make_step(static, variant=variant)
-    tr, lp, bank, cnt = _lay_out(trace, params, state, dev)
-    carry = (bank, cnt)
-    for t in range(tr.t_issue.shape[0]):
+    tr, lp, st = _prepare(trace, params, state, dev)
+    T = tr.t_issue.shape[0]
+    carry = (st.bank, st.cnt, _open(static, st, T))
+    for t in range(T):
         carry = step(lp, carry, Trace(*(f[t] for f in tr)))
-    return SimState(*carry)
+    return _close(SimState(carry[0], carry[1], st.tel), carry[2],
+                  with_frames)
 
 
 def _advance(trace: Trace, static: StaticConfig, params: MechParams,
-             state: SimState, variant: str, device) -> SimState:
+             state: SimState, variant: str, device,
+             with_frames: bool = False):
     """Clone ``state`` to ``device`` and replay ``trace`` over it: one
-    ``sim_scan`` launch on a CUDA device, the eager loop on the CPU."""
+    ``sim_scan`` launch on a CUDA device (its telemetry instantiation when
+    ``static.telemetry`` is set), the eager loop on the CPU.  Returns as
+    ``_advance_eager`` does."""
     dev = resolve_device(device)
     if dev.type != "cuda":
-        return _advance_eager(trace, static, params, state, variant, dev)
+        return _advance_eager(trace, static, params, state, variant, dev,
+                              with_frames)
     _check_ported(static, variant)
-    tr, lp, bank, cnt = _lay_out(trace, params, state, dev)
-    sim_scan(tr, lp, bank, cnt, static, GEOM)
-    return SimState(bank, cnt)
+    tr, lp, st = _prepare(trace, params, state, dev)
+    tel = _open(static, st, tr.t_issue.shape[0])
+    sim_scan(tr, lp, st.bank, st.cnt, static, GEOM, tel)
+    return _close(st, tel, with_frames)
 
 
 def sim_init(static: StaticConfig, geom: DRAMGeometry = GEOM,
@@ -615,7 +836,9 @@ def sim_init(static: StaticConfig, geom: DRAMGeometry = GEOM,
     lane ``p * C + c`` for params point ``p`` on channel ``c``."""
     lanes = (batch or 1) * (channels or 1)
     return SimState(bank=init_state(static, geom, lanes, device),
-                    cnt=init_counters(geom, lanes, device))
+                    cnt=init_counters(geom, lanes, device),
+                    tel=init_telemetry(geom, lanes, device)
+                    if static.telemetry else None)
 
 
 def finalize(state: SimState) -> Counters:
@@ -631,6 +854,42 @@ def resume(trace: Trace, static: StaticConfig, params: MechParams,
     ``(P,)``; ``state`` must then hold ``P * C`` lanes.  The input state is
     not modified."""
     return _advance(trace, static, params, state, variant, device)
+
+
+def _lead(trace: Trace, params: MechParams) -> tuple:
+    """The JAX package's lead axes of a segment: ``(P,)`` for batched
+    params, then ``(C,)`` for a multi-channel trace."""
+    P = _n_params(params)
+    C = int(trace.t_issue.shape[0]) if np.ndim(trace.t_issue) == 2 else None
+    return tuple(d for d in (P, C) if d is not None)
+
+
+def resume_tel(trace: Trace, static: StaticConfig, params: MechParams,
+               state: SimState, variant: str = "fused", device=None):
+    """Telemetry segment: like ``resume`` but returns ``(SimState,
+    TelemetryFrame)``, the frame's leaves ``(W, ...)``, ``(C, W, ...)``,
+    ``(P, W, ...)`` or ``(P, C, W, ...)`` as the JAX package lays them out
+    (the state stays in lane layout).  Requires ``static.telemetry > 0``."""
+    if static.telemetry <= 0:
+        raise ValueError("resume_tel needs StaticConfig.telemetry > 0 "
+                         "(the window period in real requests)")
+    st, frames = _advance(trace, static, params, state, variant, device,
+                          with_frames=True)
+    return st, _unlane(frames, _lead(trace, params))
+
+
+def sweep_resume_tel(trace: Trace, static: StaticConfig,
+                     params_batch: MechParams, state: SimState,
+                     variant: str = "fused", device=None):
+    """Batched telemetry segment: ``resume_tel`` over params leaves
+    ``(P,)``, frame leaves ``(P, [C,] W, ...)``."""
+    if static.telemetry <= 0:
+        raise ValueError("sweep_resume_tel needs StaticConfig.telemetry > 0 "
+                         "(the window period in real requests)")
+    if _n_params(params_batch) is None:
+        raise ValueError("sweep_resume_tel needs params leaves with a (P,) "
+                         "axis")
+    return resume_tel(trace, static, params_batch, state, variant, device)
 
 
 def simulate(trace: Trace, static: StaticConfig, params: MechParams,

@@ -433,7 +433,7 @@ def _advance_waves_eager(wtrace: dram.Trace, static: StaticConfig,
     wt = _lane_waves(wtrace, P, dev)
     lp = dram._lane_params(params, C, dev)
     step = make_wave_step(static)
-    carry = tuple(dram.clone_state(state, dev))
+    carry = tuple(dram.clone_state(state, dev))[:2]
     for i in range(wt.t_issue.shape[0]):
         carry = step(lp, carry, dram.Trace(*(f[i] for f in wt)))
     return dram.SimState(*carry)

@@ -19,10 +19,13 @@ axis.  The counters come back to the host once per group and the IPC /
 energy post-processing is the JAX package's numpy code, so equal counters
 give exactly equal ``RunResult``s.
 
+A config with telemetry windows (``MechConfig.telemetry``) replays through
+the telemetry route and returns the same results; the windows themselves
+are collected by ``streaming`` with an ``obs.WindowCollector``.
+
 Not ported yet (ROADMAP.md, Queue 1): device-generated workloads
 (``WorkloadSpec`` entries, ``run_scenario``), which raise
-``NotImplementedError``, and telemetry windows, which raise
-``ValueError``.
+``NotImplementedError``.
 """
 from __future__ import annotations
 

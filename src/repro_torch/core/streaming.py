@@ -26,8 +26,12 @@ Pipeline, per stream:
    ``checkpoint.save_sim_state``; ``resume_stream`` restores it and skips
    the already-simulated prefix.
 
-Not ported yet (ROADMAP.md, Queue 1): telemetry windows.  A telemetry
-collector, or a config with ``telemetry > 0``, raises ``ValueError``.
+With a telemetry collector (``obs.WindowCollector``, anything with
+``add(frames)`` / ``close(state)``) and a config whose ``telemetry`` is
+the window period, segments run through ``dram.resume_tel`` /
+``sweep_resume_tel``: each segment's frames go to the collector, and the
+cursor rides in ``SimState.tel``, so the collected series is chunking-
+invariant (DESIGN.md §15).
 """
 from __future__ import annotations
 
@@ -148,11 +152,17 @@ def scheduled_segments(segments: Iterable[dram.Trace],
     yield from pack(flush=True)
 
 
-def _check_telemetry(telemetry, static):
-    if telemetry is not None or static.telemetry:
-        raise ValueError("telemetry windows are not ported to repro_torch "
-                         "yet (see ROADMAP.md, Queue 1); set telemetry=0 "
-                         "and pass no collector")
+def _check_telemetry(telemetry, static, wavefront_exec=False):
+    """Validate a telemetry collector against the run's static config."""
+    if telemetry is None:
+        return
+    if not static.telemetry:
+        raise ValueError(
+            "a telemetry collector needs a telemetry-enabled config "
+            "(set MechConfig.telemetry to the window period)")
+    if wavefront_exec:
+        raise ValueError("telemetry windows are not supported under "
+                         "wavefront execution")
 
 
 def _lead(seg: dram.Trace) -> tuple:
@@ -163,9 +173,11 @@ def _lead(seg: dram.Trace) -> tuple:
 
 def _replay(segments: Iterable[dram.Trace], static, params, state,
             start_chunk: int, checkpoint_dir, checkpoint_every: int,
-            batch: Optional[int], wavefront_exec: bool, dev):
+            batch: Optional[int], wavefront_exec: bool, telemetry, dev):
     """Advance ``state`` (a fresh one when None) over every segment from
-    ``start_chunk`` on; returns the final state and the channel axis."""
+    ``start_chunk`` on, handing each segment's frames to ``telemetry``
+    when given and closing it at the end; returns the final state and the
+    channel axis."""
     lead = None
     for i, seg in enumerate(segments):
         if lead is None:
@@ -178,6 +190,11 @@ def _replay(segments: Iterable[dram.Trace], static, params, state,
         if wavefront_exec:
             state = wavefront.resume_waves(wavefront.form_waves(seg), static,
                                            params, state, dev)
+        elif telemetry is not None:
+            run = dram.resume_tel if batch is None else \
+                dram.sweep_resume_tel
+            state, frames = run(seg, static, params, state, device=dev)
+            telemetry.add(frames)
         else:
             state = dram.resume(seg, static, params, state, device=dev)
         if checkpoint_dir and checkpoint_every and \
@@ -185,6 +202,8 @@ def _replay(segments: Iterable[dram.Trace], static, params, state,
             ckpt_lib.save_sim_state(checkpoint_dir, i + 1, state)
     if state is None or lead is None:
         raise ValueError("empty segment stream")
+    if telemetry is not None:
+        telemetry.close(state)
     return state, lead
 
 
@@ -204,16 +223,17 @@ def simulate_stream(segments: Iterable[dram.Trace], cfg: MechConfig,
     per-segment waves and replays them through ``wavefront.resume_waves``
     instead.  ``state``/``start_chunk`` resume a checkpointed replay (see
     ``resume_stream``); ``checkpoint_dir`` + ``checkpoint_every`` snapshot
-    the carry every N segments."""
+    the carry every N segments.  ``telemetry`` is a window-frame collector
+    and requires ``cfg.telemetry > 0`` (see the module docstring)."""
     static = cfg.static
-    _check_telemetry(telemetry, static)
+    _check_telemetry(telemetry, static, wavefront_exec)
     dev = resolve_device(device)
     it: Iterable[dram.Trace] = segments
     if cfg.sched is not None and not cfg.sched.is_identity:
         it = scheduled_segments(it, cfg.sched)
     state, lead = _replay(it, static, cfg.params(t, dev), state,
                           start_chunk, checkpoint_dir, checkpoint_every,
-                          None, wavefront_exec, dev)
+                          None, wavefront_exec, telemetry, dev)
     return dram._unlane(dram.finalize(state), lead)
 
 
@@ -246,12 +266,13 @@ def sweep_stream(segments: Iterable[dram.Trace],
     ...)``.  Callers pre-schedule or stream identity-order traces — the
     sweep layer (``simulator.sweep``) owns controller grouping.
     ``state``/``start_chunk``/``checkpoint_dir``/``checkpoint_every``
-    mirror ``simulate_stream``."""
+    mirror ``simulate_stream``; ``telemetry`` collects the whole grid's
+    frames (leaves gain the (P, [C,]) lead axes)."""
     _check_telemetry(telemetry, static)
     P = dram._n_params(params_batch)
     if P is None:
         raise ValueError("sweep_stream needs params leaves with a (P,) axis")
     state, lead = _replay(segments, static, params_batch, state, start_chunk,
                           checkpoint_dir, checkpoint_every, P, False,
-                          resolve_device(device))
+                          telemetry, resolve_device(device))
     return dram._unlane(dram.finalize(state), (P,) + lead)

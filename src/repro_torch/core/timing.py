@@ -156,7 +156,7 @@ class StaticConfig:
     # route the tag compare + victim argmin through the fused
     # ``kernels/fts_lookup`` op (the CUDA kernel on a CUDA device)
     fts_kernel: bool = False
-    # in-scan telemetry window period; not ported (the step raises on > 0)
+    # telemetry window period in REAL requests (DESIGN.md §15); 0 disables
     telemetry: int = 0
 
     @property
@@ -211,7 +211,7 @@ class MechConfig:
     insert_threshold: int = 1      # consecutive misses before insertion
     benefit_bits: int = 5
     fts_kernel: bool = False       # fuse lookup+victim via kernels/fts_lookup
-    telemetry: int = 0             # in-scan window period; not ported
+    telemetry: int = 0             # window period in real requests
     slo_ns: int = 0                # per-request latency SLO threshold (ns)
     sched: SchedConfig = SCHED_FCFS
 

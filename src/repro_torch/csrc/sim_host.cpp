@@ -8,6 +8,8 @@
 
 #include <stdint.h>
 
+#include <vector>
+
 #include "sim_step.cuh"
 
 namespace {
@@ -32,7 +34,11 @@ sim::Lookup scalar_lookup(const int32_t* tags, const int32_t* score, int S,
 // sim_scan_launch without a stream.
 extern "C" int sim_replay_host(void* const* ptrs, const int* dims) {
   const sim::Args a = sim::make_args(ptrs, dims);
+  const bool tel_on = a.d.period > 0;
+  std::vector<int32_t> planes(tel_on ? sim::tel_plane_ints(a.d) : 0);
   for (int n = 0; n < a.d.N; ++n) {
+    sim::Tel tel;
+    if (tel_on && a.d.T > 0) sim::tel_load(a, n, tel, planes.data());
     for (int t = 0; t < a.d.T; ++t) {
       const sim::Req r = sim::request(a, n, t);
       sim::Lookup lk{a.d.S, 0};
@@ -41,7 +47,9 @@ extern "C" int sim_replay_host(void* const* ptrs, const int* dims) {
       sim::Step s;
       sim::decide(a, n, r, lk, s);
       sim::commit(a, n, r, s, t == 0);
+      if (tel_on) sim::tel_step(a, n, r, s, tel, planes.data());
     }
+    if (tel_on && a.d.T > 0) sim::tel_store(a, n, tel, planes.data());
   }
   return 0;
 }

@@ -33,6 +33,18 @@
 // Static choices (mechanism, policy) are launch arguments; any max_slots,
 // max_segs_per_row and miss-tracker size work.
 //
+// Telemetry windows (StaticConfig.telemetry > 0, DESIGN.md §15/§16) are a
+// template parameter, so the telemetry-off instantiation is the replay
+// without them, instruction for instruction.  With them, thread 0 folds
+// each request into the open window after commit() (sim::tel_step): the
+// 12 scalar lanes stay in its registers for the whole launch, the
+// window's bank and histogram planes and the cumulative histogram and
+// SLO counts in shared memory (500 ints at 16 banks and 8 cores); a ring
+// row goes to device memory only when a window closes, and the live row,
+// the open window and the planes once at the end.  No step reads back
+// what telemetry stores, so it adds no round trip to the chain below,
+// only thread 0's instructions and, once per window, 56 stores.
+//
 // Bound on this card.  Bytes: the trace read once and the FTS, bank and
 // counter state read (and, but for the free list, written) once, ~17 MB
 // at the fig-8 group (32 lanes, 6144 steps, 512 slots), a few
@@ -58,11 +70,15 @@ namespace {
 
 constexpr int kWarp = fts::kWarp;
 
+template <bool kTel>
 __global__ void __launch_bounds__(kWarp) sim_scan_kernel(sim::Args a) {
+  extern __shared__ int32_t planes[];   // telemetry planes (kTel only)
   const int n = blockIdx.x;
   if (n >= a.d.N) return;
   const bool cache = sim::has_cache(a.d);
   const bool leader = (threadIdx.x & (kWarp - 1)) == 0;
+  sim::Tel tel;
+  if (kTel && leader) sim::tel_load(a, n, tel, planes);
   for (int t = 0; t < a.d.T; ++t) {
     const sim::Req r = sim::request(a, n, t);
     sim::Lookup lk{a.d.S, 0};
@@ -75,21 +91,32 @@ __global__ void __launch_bounds__(kWarp) sim_scan_kernel(sim::Args a) {
     sim::Step s;
     sim::decide(a, n, r, lk, s);
     __syncwarp();
-    if (leader) sim::commit(a, n, r, s, t == 0);
+    if (leader) {
+      sim::commit(a, n, r, s, t == 0);
+      if (kTel) sim::tel_step(a, n, r, s, tel, planes);
+    }
     __syncwarp();
   }
+  if (kTel && leader) sim::tel_store(a, n, tel, planes);
 }
 
 }  // namespace
 
 // Replay `dims[0]` steps of `dims[1]` lanes on `stream` (a cudaStream_t
-// passed as a pointer).  `ptrs` holds the 50 leaf pointers and `dims` the
-// 12 sizes, in the order of sim_step.cuh's make_args.
+// passed as a pointer).  `ptrs` holds the 50 leaf pointers (59 with a
+// telemetry period, dims[12]) and `dims` the 14 sizes, in the order of
+// sim_step.cuh's make_args.
 // Returns cudaGetLastError(): non-zero means the launch was refused.
 extern "C" int sim_scan_launch(void* const* ptrs, const int* dims,
                                void* stream) {
   const sim::Args a = sim::make_args(ptrs, dims);
   if (a.d.N <= 0 || a.d.T <= 0) return 0;
-  sim_scan_kernel<<<a.d.N, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.d.period > 0) {
+    const size_t smem = sim::tel_plane_ints(a.d) * sizeof(int32_t);
+    sim_scan_kernel<true><<<a.d.N, kWarp, smem, st>>>(a);
+  } else {
+    sim_scan_kernel<false><<<a.d.N, kWarp, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

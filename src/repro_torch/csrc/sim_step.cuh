@@ -30,6 +30,16 @@
 //     and the added one after);
 //   * ties to the first index, as jnp.argmin;
 //   * a no-op request (t_issue >= NOOP_ISSUE) stores back old values.
+//
+// Telemetry windows (dram._telemetry_step, DESIGN.md §15/§16), when the
+// period is set: tel_step() after commit() folds the request into the
+// open window, which a Tel holds in registers for the whole replay (the
+// 12 scalar lanes) and in a small planes buffer (the window's bank issues
+// and latency histogram, the cumulative read/write histogram and the
+// over-SLO counts: shared memory in the kernel).  A ring row is written
+// only when a window closes (its values just before the reset) and, by
+// tel_store(), for the live window at the end: the same rows as the eager
+// loop's "write row n every step", filler rows included.
 
 #pragma once
 
@@ -48,6 +58,8 @@ constexpr int32_t kNoopIssue = 1 << 30;          // dram.NOOP_ISSUE
 constexpr int32_t kLatSumCap = (1 << 30) - 1;    // dram.LAT_SUM_CAP
 constexpr int32_t kMshr = 8;                     // dram.N_MSHR
 constexpr int32_t kBig = 1 << 30;                // fts.BIG
+constexpr int kHistBuckets = 28;                 // dram.HIST_BUCKETS
+constexpr int kTelLanes = 12;                    // dram._TEL_SCALARS
 
 // timing.MECHANISMS and the replacement policies, in that order
 enum Mechanism { kBase, kLisaVilla, kFigSlow, kFigFast, kFigIdeal, kLldram };
@@ -107,6 +119,20 @@ SIM_FN int32_t masked_argmin(const int32_t* score, int n, int32_t limit) {
   return masked_pick(n, kept, val, idx);
 }
 
+// The §16 bucket of a latency: its bit length (32 - clz), clipped into
+// the last bucket.  clz(0) is 32 on the card; the host builtin is
+// undefined at 0, so zero is taken apart there.
+SIM_FN int32_t hist_bucket(int32_t lat) {
+  const int32_t v = lat > 0 ? lat : 0;
+#if defined(__CUDA_ARCH__)
+  const int32_t bits = 32 - __clz(v);
+#else
+  const int32_t bits =
+      v == 0 ? 0 : 32 - __builtin_clz(static_cast<uint32_t>(v));
+#endif
+  return imin(bits, kHistBuckets - 1);
+}
+
 // Sizes and static choices of one replay (the dims array, in this order).
 struct Dims {
   int T, N;                 // steps, lanes
@@ -114,11 +140,13 @@ struct Dims {
   int n_cores;
   int n_rows, rows_per_subarray, n_subarrays;
   int mech, policy;
+  int period, W;            // telemetry window period (0: off), ring rows
 };
 
 // Every leaf, as device (or host) pointers in the order of the Python
 // NamedTuples: Trace, MechParams, BankState (FTS flattened), Counters (50
-// pointers).  bool leaves are one byte, 0 or 1.
+// pointers), then with a telemetry period the 9 leaves of dram.TelScan.
+// bool leaves are one byte, 0 or 1.
 struct Args {
   Dims d;
   // trace, (T, N)
@@ -146,12 +174,19 @@ struct Args {
   int32_t *acts_slow, *acts_fast, *reads, *writes, *reloc_blocks,
       *wb_blocks, *row_hits, *cache_hits, *insertions, *lat_sum_ns,
       *req_cnt, *t_end;
+  // telemetry (dram.TelScan): the open window (N, 12), (N, n_banks),
+  // (N, kHistBuckets); the cumulative planes (N, 2, n_cores,
+  // kHistBuckets) and (N, n_cores); the ring (N, W, 12), (N, W, n_banks),
+  // (N, W, kHistBuckets); the closed-window count (N,)
+  int32_t *tel_scalars, *tel_banks, *tel_hist_win, *tel_hist, *tel_slo,
+      *buf_scalars, *buf_banks, *buf_hist, *tel_n;
 };
 
 SIM_FN Args make_args(void* const* p, const int* dims) {
   Args a;
-  a.d = Dims{dims[0], dims[1], dims[2], dims[3], dims[4],  dims[5],
-             dims[6], dims[7], dims[8], dims[9], dims[10], dims[11]};
+  a.d = Dims{dims[0], dims[1], dims[2],  dims[3],  dims[4],
+             dims[5], dims[6], dims[7],  dims[8],  dims[9],
+             dims[10], dims[11], dims[12], dims[13]};
   int i = 0;
   auto i32 = [&]() { return static_cast<int32_t*>(p[i++]); };
   auto u8 = [&]() { return static_cast<uint8_t*>(p[i++]); };
@@ -172,6 +207,13 @@ SIM_FN Args make_args(void* const* p, const int* dims) {
   a.writes = i32(); a.reloc_blocks = i32(); a.wb_blocks = i32();
   a.row_hits = i32(); a.cache_hits = i32(); a.insertions = i32();
   a.lat_sum_ns = i32(); a.req_cnt = i32(); a.t_end = i32();
+  a.tel_scalars = a.tel_banks = a.tel_hist_win = a.tel_hist = a.tel_slo =
+      a.buf_scalars = a.buf_banks = a.buf_hist = a.tel_n = nullptr;
+  if (a.d.period > 0) {
+    a.tel_scalars = i32(); a.tel_banks = i32(); a.tel_hist_win = i32();
+    a.tel_hist = i32(); a.tel_slo = i32(); a.buf_scalars = i32();
+    a.buf_banks = i32(); a.buf_hist = i32(); a.tel_n = i32();
+  }
   return a;
 }
 
@@ -245,6 +287,12 @@ struct Step {
   // counter increments
   int32_t acts_slow, acts_fast, reads, writes, reloc_blocks, wb_blocks,
       row_hits, cache_hits, insertions, lat_ns, req, t_end;
+  // what telemetry adds (real requests; 0 for a no-op): the request's
+  // ordinal (the pre-step reads + writes), its ticks waiting on the busy
+  // bus and on a full MSHR, its latency bucket and whether it is over the
+  // SLO (exact latency)
+  int32_t step_id, bus_wait, mshr_wait, bucket;
+  bool over;
 };
 
 // Distance (in subarrays) to the nearest interleaved fast subarray.
@@ -430,6 +478,16 @@ SIM_FN void decide(const Args& a, int n, const Req& r, const Lookup& lk,
   s.lat_ns = r.real ? floordiv(wsub(done, t_ready), 8) : 0;
   s.req = r.real;
   s.t_end = r.real ? imax(done, busy_end) : 0;
+
+  // ---- telemetry (dead code unless the caller runs tel_step)
+  s.step_id = step_id;
+  s.bus_wait = r.real ? wsub(done, wadd(wadd(wadd(t0, pre_act), a.cas[n]),
+                                        a.bl[n]))
+                      : 0;
+  s.mshr_wait = r.real ? wsub(t_ready, r.t_issue) : 0;
+  s.bucket = hist_bucket(s.lat_ns);
+  const int32_t slo = a.slo_ns[n];
+  s.over = r.real && slo > 0 && s.lat_ns > slo;
 }
 
 SIM_FN void commit(const Args& a, int n, const Req& r, const Step& s,
@@ -482,6 +540,110 @@ SIM_FN void commit(const Args& a, int n, const Req& r, const Step& s,
   a.cache_hits[n] = wadd(a.cache_hits[n], s.cache_hits);
   a.insertions[n] = wadd(a.insertions[n], s.insertions);
   a.t_end[n] = imax(a.t_end[n], s.t_end);
+}
+
+// ---- telemetry windows -------------------------------------------------
+
+// The open window's 12 scalar lanes (registers) and the closed count.
+struct Tel {
+  int32_t v[kTelLanes];
+  int32_t n;
+};
+
+// The planes buffer of one lane: the open window's bank issues and
+// histogram, then the cumulative (2, n_cores, kHistBuckets) histogram and
+// the n_cores over-SLO counts.
+SIM_FN int tel_plane_ints(const Dims& d) {
+  return d.n_banks + kHistBuckets + 2 * d.n_cores * kHistBuckets + d.n_cores;
+}
+
+SIM_FN void tel_load(const Args& a, int n, Tel& tel, int32_t* planes) {
+  const Dims& d = a.d;
+  for (int i = 0; i < kTelLanes; ++i)
+    tel.v[i] = a.tel_scalars[static_cast<size_t>(n) * kTelLanes + i];
+  tel.n = a.tel_n[n];
+  int32_t* p = planes;
+  for (int j = 0; j < d.n_banks; ++j)
+    *p++ = a.tel_banks[static_cast<size_t>(n) * d.n_banks + j];
+  for (int j = 0; j < kHistBuckets; ++j)
+    *p++ = a.tel_hist_win[static_cast<size_t>(n) * kHistBuckets + j];
+  const int nh = 2 * d.n_cores * kHistBuckets;
+  for (int j = 0; j < nh; ++j)
+    *p++ = a.tel_hist[static_cast<size_t>(n) * nh + j];
+  for (int j = 0; j < d.n_cores; ++j)
+    *p++ = a.tel_slo[static_cast<size_t>(n) * d.n_cores + j];
+}
+
+// Ring row `row` of lane n := the open window as it stands.
+SIM_FN void tel_write_row(const Args& a, int n, int32_t row, const Tel& tel,
+                          const int32_t* planes) {
+  const Dims& d = a.d;
+  const size_t r = static_cast<size_t>(n) * d.W + clampi(row, 0, d.W - 1);
+  for (int i = 0; i < kTelLanes; ++i)
+    a.buf_scalars[r * kTelLanes + i] = tel.v[i];
+  for (int j = 0; j < d.n_banks; ++j)
+    a.buf_banks[r * d.n_banks + j] = planes[j];
+  for (int j = 0; j < kHistBuckets; ++j)
+    a.buf_hist[r * kHistBuckets + j] = planes[d.n_banks + j];
+}
+
+// Fold one request (its Step) into the open window, after commit().
+SIM_FN void tel_step(const Args& a, int n, const Req& r, const Step& s,
+                     Tel& tel, int32_t* planes) {
+  const Dims& d = a.d;
+  // windows never skip, so the boundary test is a multiply against the
+  // next window's start
+  const int32_t next = wadd(tel.v[0], 1);
+  if (r.real && s.step_id >= wmul(next, d.period)) {
+    tel_write_row(a, n, tel.n, tel, planes);
+    tel.n = wadd(tel.n, 1);
+    tel.v[0] = next;
+    for (int i = 1; i < kTelLanes; ++i) tel.v[i] = 0;
+    for (int j = 0; j < d.n_banks + kHistBuckets; ++j) planes[j] = 0;
+  }
+  const int32_t delta[kTelLanes] = {
+      0,           s.req,        s.reads,      s.writes,
+      s.row_hits,  s.cache_hits, s.insertions, s.reloc_blocks,
+      s.lat_ns,    s.bus_wait,   s.mshr_wait,  s.over};
+  for (int i = 0; i < kTelLanes; ++i)
+    tel.v[i] = imin(wadd(tel.v[i], delta[i]), kLatSumCap);
+  if (r.real) {
+    // the four planes are disjoint: every load issues before any store,
+    // so their latencies overlap
+    int32_t* banks = planes;
+    int32_t* hist_w = banks + d.n_banks;
+    int32_t* hist = hist_w + kHistBuckets;
+    int32_t* slo = hist + 2 * d.n_cores * kHistBuckets;
+    const int hi = ((r.is_write ? 1 : 0) * d.n_cores + r.c) * kHistBuckets +
+                   s.bucket;
+    const int32_t b0 = banks[r.b], h0 = hist_w[s.bucket], c0 = hist[hi],
+                  o0 = slo[r.c];
+    banks[r.b] = wadd(b0, 1);
+    hist_w[s.bucket] = wadd(h0, 1);
+    hist[hi] = wadd(c0, 1);
+    slo[r.c] = wadd(o0, s.over);
+  }
+}
+
+// End of the replay: the live ring row, the open window, the planes and
+// the closed count back to the lane's leaves.
+SIM_FN void tel_store(const Args& a, int n, const Tel& tel,
+                      const int32_t* planes) {
+  const Dims& d = a.d;
+  tel_write_row(a, n, tel.n, tel, planes);
+  for (int i = 0; i < kTelLanes; ++i)
+    a.tel_scalars[static_cast<size_t>(n) * kTelLanes + i] = tel.v[i];
+  a.tel_n[n] = tel.n;
+  const int32_t* p = planes;
+  for (int j = 0; j < d.n_banks; ++j)
+    a.tel_banks[static_cast<size_t>(n) * d.n_banks + j] = *p++;
+  for (int j = 0; j < kHistBuckets; ++j)
+    a.tel_hist_win[static_cast<size_t>(n) * kHistBuckets + j] = *p++;
+  const int nh = 2 * d.n_cores * kHistBuckets;
+  for (int j = 0; j < nh; ++j)
+    a.tel_hist[static_cast<size_t>(n) * nh + j] = *p++;
+  for (int j = 0; j < d.n_cores; ++j)
+    a.tel_slo[static_cast<size_t>(n) * d.n_cores + j] = *p++;
 }
 
 }  // namespace sim

@@ -8,7 +8,11 @@ as ``fts_lookup_warp()``.  One launch replays a whole ``(T, N)`` trace and
 updates every state and counter leaf in place.  What bounds it: a lane's
 steps form one chain of dependent loads and stores, so T times a step's
 dependent round trips, far above the bytes it moves (see the note in the
-CUDA source).
+CUDA source).  With a telemetry period (``StaticConfig.telemetry``) the
+launch runs the kernel's telemetry instantiation, which also advances a
+``dram.TelScan`` (the open window, the cumulative §16 planes and the
+segment's ring of closed windows) in place, as the eager loop's
+``dram._telemetry_step`` does.
 
 ``host_replay`` runs the same per-request code (``csrc/sim_step.cuh``)
 built by the host C++ compiler with a scalar lookup; the CPU tests hold
@@ -32,6 +36,14 @@ KERNEL = "sim_scan"
 HOST = "sim_host"
 POLICIES = ("row_benefit", "segment_benefit", "lru", "random")
 N_MSHR = 8   # dram.N_MSHR
+HIST_BUCKETS = 28   # dram.HIST_BUCKETS
+TEL_LANES = 12      # len(dram._TEL_SCALARS)
+
+
+def ring_rows(T: int, period: int) -> int:
+    """Rows of a T-step segment's window ring: the most windows it can
+    close plus the live row (the JAX package's ``_scan_segment``)."""
+    return min(T, T // period + 2) + 1
 
 
 class _Counter:
@@ -51,31 +63,41 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _leaves(bank, cnt) -> List[Tuple[str, torch.Tensor]]:
+def _leaves(bank, cnt, tel=None) -> List[Tuple[str, torch.Tensor]]:
     """(name, tensor) of every state leaf in the kernel's order: BankState
-    with the FTS flattened, then Counters."""
+    with the FTS flattened, then Counters, then (with telemetry) the
+    ``dram.TelScan`` leaves."""
     out = []
     for name, x in zip(bank._fields, bank):
         if isinstance(x, torch.Tensor):
             out.append((name, x))
         else:
             out.extend((f"fts.{f}", y) for f, y in zip(x._fields, x))
-    return out + list(zip(cnt._fields, cnt))
+    out += list(zip(cnt._fields, cnt))
+    if tel is not None:
+        out += [(f"tel.{f}", x) for f, x in zip(tel._fields, tel)]
+    return out
 
 
-def pack(trace, params, bank, cnt, static, geom, device: torch.device):
+def pack(trace, params, bank, cnt, static, geom, device: torch.device,
+         tel=None):
     """Check every leaf and lay out the kernel's arguments: the
     ``(pointers, dims)`` ctypes arrays of ``csrc/sim_step.cuh``'s
     ``make_args``.
 
     ``trace`` leaves (T, N), ``params`` leaves (N,), ``bank`` a
     ``dram.BankState`` and ``cnt`` a ``dram.Counters`` with lane axis N,
-    all contiguous on ``device``.  Raises ``ValueError`` on any other
-    device, dtype, shape or layout, and on an unknown mechanism or policy.
-    (Telemetry windows are refused before, by ``dram._advance``.)"""
+    and with ``static.telemetry > 0`` (and only then) ``tel`` a
+    ``dram.TelScan`` of W ring rows, all contiguous on ``device``.
+    Raises ``ValueError`` on any other device, dtype, shape or layout,
+    and on an unknown mechanism or policy."""
     if static.mechanism not in MECHANISMS or static.policy not in POLICIES:
         raise ValueError(f"sim_scan: unknown mechanism/policy "
                          f"{static.mechanism!r}/{static.policy!r}")
+    period = int(static.telemetry)
+    if (period > 0) != (tel is not None):
+        raise ValueError(f"sim_scan: telemetry period {period} needs "
+                         f"{'a' if period > 0 else 'no'} TelScan carry")
     if trace.t_issue.dim() != 2:
         raise ValueError("sim_scan: trace leaves must be (T, N)")
     T, N = trace.t_issue.shape
@@ -99,10 +121,25 @@ def pack(trace, params, bank, cnt, static, geom, device: torch.device):
               "fts.n_valid": (N, nb), "mshr_ring": (N, nc, N_MSHR),
               "mshr_idx": (N, nc), "bus_free": (N,),
               "lat_sum_ns": (N, nc), "req_cnt": (N, nc)}
+    W = 0
+    if tel is not None:
+        W = int(tel.buf_scalars.shape[1]) if tel.buf_scalars.dim() == 3 \
+            else -1
+        if W != ring_rows(T, period):
+            raise ValueError(f"sim_scan: telemetry ring of {W} rows, a "
+                             f"{T}-step segment at period {period} needs "
+                             f"{ring_rows(T, period)}")
+        nl, hb = TEL_LANES, HIST_BUCKETS
+        shapes.update({
+            "tel.scalars": (N, nl), "tel.bank_issues": (N, nb),
+            "tel.hist_win": (N, hb), "tel.hist": (N, 2, nc, hb),
+            "tel.slo": (N, nc), "tel.buf_scalars": (N, W, nl),
+            "tel.buf_banks": (N, W, nb), "tel.buf_hist": (N, W, hb)})
     bools = {"is_write", "fts.valid", "fts.dirty", "fts.evict_mask"}
     leaves = [(f, x, (T, N)) for f, x in zip(trace._fields, trace)]
     leaves += [(f, x, (N,)) for f, x in zip(params._fields, params)]
-    leaves += [(f, x, shapes.get(f, (N,))) for f, x in _leaves(bank, cnt)]
+    leaves += [(f, x, shapes.get(f, (N,)))
+               for f, x in _leaves(bank, cnt, tel)]
     for name, x, shape in leaves:
         if not isinstance(x, torch.Tensor) or x.device != device:
             raise ValueError(f"sim_scan: {name} must be a tensor on {device}")
@@ -116,19 +153,19 @@ def pack(trace, params, bank, cnt, static, geom, device: torch.device):
             raise ValueError(f"sim_scan: {name} must be contiguous")
     ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr()
                                              for _, x, _ in leaves])
-    dims = (ctypes.c_int * 12)(
+    dims = (ctypes.c_int * 14)(
         T, N, nb, S, MS, NT, nc, geom.n_rows, geom.rows_per_subarray,
         geom.n_subarrays, MECHANISMS.index(static.mechanism),
-        POLICIES.index(static.policy))
+        POLICIES.index(static.policy), period, W)
     return ptrs, dims
 
 
-def sim_scan(trace, params, bank, cnt, static, geom) -> None:
+def sim_scan(trace, params, bank, cnt, static, geom, tel=None) -> None:
     """Launch the CUDA kernel: replay every step of ``trace`` ((T, N) int32
     leaves, ``is_write`` bool) over N lanes with ``params`` ((N,) int32),
-    updating ``bank`` (a ``dram.BankState``) and ``cnt`` (a
-    ``dram.Counters``) IN PLACE, bitwise as ``T`` calls of
-    ``dram.make_step(static, geom)`` would.
+    updating ``bank`` (a ``dram.BankState``), ``cnt`` (a ``dram.Counters``)
+    and, with a telemetry period, ``tel`` (a ``dram.TelScan``) IN PLACE,
+    bitwise as ``T`` calls of ``dram.make_step(static, geom)`` would.
 
     Runs on the current stream without synchronising; raises if the launch
     is refused."""
@@ -136,7 +173,7 @@ def sim_scan(trace, params, bank, cnt, static, geom) -> None:
     if dev.type != "cuda":
         raise ValueError("sim_scan launches the CUDA kernel and needs CUDA "
                          f"tensors; got {dev}")
-    ptrs, dims = pack(trace, params, bank, cnt, static, geom, dev)
+    ptrs, dims = pack(trace, params, bank, cnt, static, geom, dev, tel)
     if dims[0] == 0 or dims[1] == 0:
         return
     err = _lib().sim_scan_launch(
@@ -152,14 +189,14 @@ def host_library() -> Path:
     return _build.build_host(HOST)
 
 
-def host_replay(trace, params, bank, cnt, static, geom) -> None:
+def host_replay(trace, params, bank, cnt, static, geom, tel=None) -> None:
     """``sim_scan``'s contract on CPU tensors, through the host build of
-    the same step (``csrc/sim_step.cuh``) with a scalar lookup.  For the
-    tests: the port's CPU path is the eager loop."""
+    the same step (``csrc/sim_step.cuh``) with a scalar lookup, telemetry
+    included.  For the tests: the port's CPU path is the eager loop."""
     dev = trace.t_issue.device
     if dev.type != "cpu":
         raise ValueError(f"host_replay needs CPU tensors; got {dev}")
-    ptrs, dims = pack(trace, params, bank, cnt, static, geom, dev)
+    ptrs, dims = pack(trace, params, bank, cnt, static, geom, dev, tel)
     fn = ctypes.CDLL(str(host_library())).sim_replay_host
     fn.argtypes = [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int

@@ -1,0 +1,25 @@
+"""Flight-recorder observability (DESIGN.md §15), PyTorch port of
+``repro.obs``:
+
+ * ``obs.telemetry`` — host-side collection of the replay's telemetry
+   window frames (``dram.resume_tel`` / ``sweep_resume_tel``, enabled via
+   ``StaticConfig.telemetry``): ``WindowCollector`` masks the frames down
+   to closed windows and serves per-window series (hit rates, relocation
+   bursts, bus/MSHR stalls, per-bank issue mix, latency histograms);
+ * ``obs.latency`` — the §16 histograms' percentiles with their bucket
+   brackets, CDFs and exact SLO accounting (numpy);
+ * ``obs.trace`` — a structured JSONL span/event log with a Chrome
+   trace-event exporter (Perfetto / chrome://tracing), and the telemetry
+   series as counter tracks.
+
+Not ported yet (ROADMAP.md, Queue 1): ``obs.profile`` (dispatch counts of
+the registered entry points) and ``python -m repro.obs`` (the telemetry
+tax on the capacity grid).
+"""
+from repro_torch.obs.telemetry import WindowCollector, window_table
+from repro_torch.obs.trace import (Tracer, chrome_trace, chrome_from_jsonl,
+                                   telemetry_counter_events)
+from repro_torch.obs import latency
+
+__all__ = ["WindowCollector", "window_table", "Tracer", "chrome_trace",
+           "chrome_from_jsonl", "telemetry_counter_events", "latency"]

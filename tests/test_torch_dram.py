@@ -194,8 +194,14 @@ def test_state_carried_from_jax_into_port(mech, policy):
 
 
 def test_unported_paths_raise():
-    _, cfg = _cfgs("figcache_fast", telemetry=8)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pd.run_channel(pd.Trace(**_pressure()), cfg, device=CPU)
+    """Only the dense body still raises.  A telemetry config, unported
+    before, now runs; its counters equal the JAX package's and the
+    telemetry-off run's."""
+    jcfg, cfg = _cfgs("figcache_fast", telemetry=8)
+    trace = pd.Trace(**_pressure())
+    got = pd.run_channel(trace, cfg, device=CPU)
+    _assert_equal(jd.run_channel(_jax_trace(_pressure()), jcfg), got, "jax")
+    _assert_equal(pd.run_channel(trace, _cfgs("figcache_fast")[1],
+                                 device=CPU), got, "telemetry off")
     with pytest.raises(ValueError, match="ported"):
         pd.make_step(pt.paper_config("base").static, variant="dense")

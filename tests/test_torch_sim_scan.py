@@ -7,9 +7,11 @@ the same step with a scalar lookup, compiled here with ``g++``), which these
 tests replay over the 18 mechanism x policy cells, a capacity grid up to a
 4096-slot bucket, no-op padding and a chunked resume: every state leaf
 and counter bitwise equal to the eager loop, and the counters to the JAX
-package's ``run_sweep``.  The ``cuda`` cases hold the kernel itself
+package's ``run_sweep``; with telemetry windows, every telemetry leaf and
+frame row too (periods 1, 7 and 32, windows saturating ``LAT_SUM_CAP``,
+zero-latency requests).  The ``cuda`` cases hold the kernel itself
 against the eager loop on the card (with the ``fts_lookup`` kernel in each
-cached step), and count launches.
+cached step), its telemetry instantiation included, and count launches.
 """
 import shutil
 
@@ -77,9 +79,9 @@ def _assert_states_equal(got, want, ctx):
 
 def _host_replay(trace, static, params, state):
     """The host build of the step over a clone of ``state`` (CPU)."""
-    tr, lp, bank, cnt = pd._lay_out(trace, params, state, torch.device("cpu"))
-    scan.host_replay(tr, lp, bank, cnt, static, pd.GEOM)
-    return pd.SimState(bank, cnt)
+    tr, lp, st = pd._prepare(trace, params, state, torch.device("cpu"))
+    scan.host_replay(tr, lp, st.bank, st.cnt, static, pd.GEOM)
+    return st
 
 
 @pytest.fixture(scope="module")
@@ -172,15 +174,96 @@ def test_lat_sum_saturates_on_every_core(host_build):
     _assert_states_equal(got, want, "lat-sum")
 
 
+def _tel_replays(trace, static, params, state):
+    """(host build, eager loop) of a telemetry replay: each the new state
+    and the lane-layout frames."""
+    cpu = torch.device("cpu")
+    tr, lp, st = pd._prepare(trace, params, state, cpu)
+    tel = pd._open(static, st, tr.t_issue.shape[0])
+    scan.host_replay(tr, lp, st.bank, st.cnt, static, pd.GEOM, tel)
+    got = pd._close(st, tel, True)
+    want = pd._advance_eager(trace, static, params, state, device=cpu,
+                             with_frames=True)
+    return got, want
+
+
+def _assert_tel_equal(got, want, ctx):
+    """Every state leaf, every telemetry leaf and every frame row (filler
+    rows too), bitwise."""
+    (gs, gf), (ws, wf) = got, want
+    _assert_states_equal(gs, ws, ctx)
+    leaves = []
+    for tree in (gs.tel, gf, ws.tel, wf):
+        leaves.append([])
+        pd._map(leaves[-1].append, tree)
+    assert len(leaves[0]) == len(leaves[2]) == 16
+    for a, b in zip(leaves[0] + leaves[1], leaves[2] + leaves[3]):
+        assert a.shape == b.shape and torch.equal(a, b), ctx
+
+
+@pytest.mark.parametrize("period", [1, 7, 32])
+@pytest.mark.parametrize("mech,policy", [("base", "row_benefit"),
+                                         ("lldram", "row_benefit"),
+                                         ("figcache_fast", "row_benefit"),
+                                         ("lisa_villa", "lru"),
+                                         ("figcache_slow", "random")])
+def test_host_step_telemetry_matches_eager_loop(host_build, mech, policy,
+                                                period):
+    """The kernel's telemetry (window in registers, planes in a buffer,
+    ring rows written at a close and at the end) against the eager loop's
+    row-every-step discipline: a 2-channel random trace with a run of
+    no-ops, SLO 40 ns, resumed from the first segment's state."""
+    cfg = _cfg(mech, policy, telemetry=period, slo_ns=40)
+    p = cfg.params(device="cpu")
+    trace = pd.noop_pad(pd.Trace(*[np.stack([a, b]) for a, b in zip(
+        _trace(150, seed=4), _trace(150, seed=5))]), 161)
+    state = pd.sim_init(cfg.static, channels=2, device="cpu")
+    for lo, hi in ((0, 40), (40, 161)):
+        seg = pd.Trace(*[x[:, lo:hi] for x in trace])
+        got, want = _tel_replays(seg, cfg.static, p, state)
+        _assert_tel_equal(got, want, (mech, policy, period, lo))
+        state = want[0]
+    assert int(state.tel.hist.sum()) == 300
+
+
+def test_host_step_telemetry_saturates_and_buckets_zero(host_build):
+    """Windows entering past and near LAT_SUM_CAP (every lane clamps each
+    step, no-ops included), and zero-latency requests (cas = bl = 0 on an
+    idle bank's open row: bucket 0): host build == eager loop."""
+    cfg = _cfg("base", telemetry=16, slo_ns=3)
+    n = 64
+    idx = np.arange(n)
+    trace = pd.noop_pad(pd.Trace(
+        t_issue=(idx * 400).astype(np.int32), bank=np.zeros(n, np.int32),
+        row=(idx // 8).astype(np.int32), col=(idx % 128).astype(np.int32),
+        is_write=idx % 3 == 0, core=(idx % 8).astype(np.int32)), 70)
+    p = cfg.params(device="cpu")
+    p = p._replace(cas=torch.zeros_like(p.cas), bl=torch.zeros_like(p.bl))
+    state = pd.sim_init(cfg.static, device="cpu")
+    win = state.tel.win
+    win.w_lat_ns[0] = pd.LAT_SUM_CAP - 5
+    win.w_mshr_wait[0] = pd.LAT_SUM_CAP + 100
+    win.w_bus_wait[0] = pd.LAT_SUM_CAP
+    got, want = _tel_replays(trace, cfg.static, p, state)
+    _assert_tel_equal(got, want, "saturation")
+    frames = want[1]
+    assert int(frames.win.w_lat_ns[0, 0]) == pd.LAT_SUM_CAP
+    assert int(frames.win.w_mshr_wait[0, 0]) == pd.LAT_SUM_CAP
+    hist = want[0].tel.hist[0].sum(dim=(0, 1))
+    assert int(hist[0]) > 0 and int(hist.sum()) == n
+
+
 def test_pack_checks_every_leaf():
     """The wrapper's checks: 50 leaves in the order of make_args, and a
-    ValueError for a wrong dtype, shape, layout or device; telemetry is
-    refused before, by the replay's entry."""
+    ValueError for a wrong dtype, shape, layout or device; with a
+    telemetry period the 9 TelScan leaves follow (59) and the period and
+    ring rows close the dims, and a missing carry or a wrong ring size
+    raises."""
     cfg = _cfg("figcache_fast")
     state = pd.sim_init(cfg.static, device="cpu")
-    tr, lp, bank, cnt = pd._lay_out(_trace(8), cfg.params(device="cpu"),
-                                    state, torch.device("cpu"))
     cpu = torch.device("cpu")
+    tr, lp, st = pd._prepare(_trace(8), cfg.params(device="cpu"), state, cpu)
+    bank, cnt = st.bank, st.cnt
     ptrs, dims = scan.pack(tr, lp, bank, cnt, cfg.static, pd.GEOM, cpu)
     assert len(ptrs) == 50 and list(dims)[:7] == [8, 1, 16, 512, 8, 256, 8]
     bad = [(tr._replace(bank=tr.bank.to(torch.int64)), lp, bank, cnt),
@@ -190,10 +273,24 @@ def test_pack_checks_every_leaf():
     for args in bad:
         with pytest.raises(ValueError, match="sim_scan"):
             scan.pack(*args, cfg.static, pd.GEOM, cpu)
+    assert list(dims)[12:] == [0, 0]
     tele = _cfg("figcache_fast", telemetry=8)
-    with pytest.raises(ValueError, match="telemetry"):
-        pd.resume(_trace(8), tele.static, tele.params(device="cpu"),
-                  pd.sim_init(tele.static, device="cpu"), device="cpu")
+    tr, lp, st = pd._prepare(_trace(8), tele.params(device="cpu"),
+                             pd.sim_init(tele.static, device="cpu"), cpu)
+    tel = pd._open(tele.static, st, 8)
+    ptrs, dims = scan.pack(tr, lp, st.bank, st.cnt, tele.static, pd.GEOM,
+                           cpu, tel)
+    assert len(ptrs) == 59 and list(dims)[12:] == [8, 4]
+    with pytest.raises(ValueError, match="TelScan"):
+        scan.pack(tr, lp, st.bank, st.cnt, tele.static, pd.GEOM, cpu)
+    with pytest.raises(ValueError, match="TelScan"):
+        scan.pack(tr, lp, st.bank, st.cnt, cfg.static, pd.GEOM, cpu, tel)
+    with pytest.raises(ValueError, match="ring"):
+        scan.pack(tr, lp, st.bank, st.cnt, tele.static, pd.GEOM, cpu,
+                  tel._replace(buf_scalars=tel.buf_scalars[:, :3]))
+    with pytest.raises(ValueError, match="tel.hist"):
+        scan.pack(tr, lp, st.bank, st.cnt, tele.static, pd.GEOM, cpu,
+                  tel._replace(hist=tel.hist[..., :4].contiguous()))
     with pytest.raises(ValueError, match="CUDA"):
         scan.sim_scan(tr, lp, bank, cnt, cfg.static, pd.GEOM)
 
@@ -280,6 +377,30 @@ def test_cuda_capacity_grid_with_a_4096_slot_bucket(cuda_device):
     _assert_states_equal(got, want, "capacity")
     assert counts[0] == (1, 0)
     assert int(got.cnt.insertions.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("period", [1, 32])
+@pytest.mark.parametrize("mech,policy", [("base", "row_benefit"),
+                                         ("figcache_fast", "row_benefit"),
+                                         ("lisa_villa", "lru")])
+def test_cuda_telemetry_kernel_matches_eager_loop(cuda_device, mech, policy,
+                                                  period):
+    """The kernel's telemetry instantiation (one launch) against the eager
+    loop on the card: every state and telemetry leaf and every frame row,
+    filler rows included."""
+    cfg = _cfg(mech, policy, telemetry=period, slo_ns=40)
+    trace = pd.noop_pad(_trace(), 330)
+    p = cfg.params(device=cuda_device)
+    state = pd.sim_init(cfg.static, device=cuda_device)
+    before = scan.COUNTER.launches
+    got = pd._advance(trace, cfg.static, p, state, "fused", cuda_device,
+                      with_frames=True)
+    torch.cuda.synchronize()
+    assert scan.COUNTER.launches - before == 1
+    want = pd._advance_eager(trace, cfg.static, p, state,
+                             device=cuda_device, with_frames=True)
+    _assert_tel_equal(got, want, (mech, policy, period))
 
 
 @pytest.mark.cuda

@@ -109,8 +109,9 @@ def test_sweep_chunk_len_matches_jax():
 
 def test_unported_simulator_paths_raise():
     """What is still unported raises with a pointer to ROADMAP.md:
-    device-generated workloads (WorkloadSpec entries, run_scenario) and
-    telemetry windows."""
+    device-generated workloads (WorkloadSpec entries, run_scenario).
+    Telemetry windows, unported before, now run: a telemetry config's
+    results equal the telemetry-off config's, monolithic and streamed."""
     a = ptr.app_params("mcf")
     tr = ptr.build_trace([a], 1, 64, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -119,7 +120,8 @@ def test_unported_simulator_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.run_scenario(object(), device=CPU)
     tel = pt.paper_config("base", telemetry=32)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ps.sweep(tr, [tel], (a,), device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ps.sweep(tr, [tel], (a,), chunk_len=16, device=CPU)
+    off = ps.sweep(tr, [pt.paper_config("base")], (a,), device=CPU)[0]
+    _assert_result_equal(off, ps.sweep(tr, [tel], (a,), device=CPU)[0],
+                         "telemetry")
+    _assert_result_equal(off, ps.sweep(tr, [tel], (a,), chunk_len=16,
+                                       device=CPU)[0], "telemetry chunked")

@@ -6,9 +6,12 @@ trips (delta overflow, negative deltas, cluster-table boundaries); chunk
 invariance at {1, 7, 64, full}, scheduled and with ``wavefront_exec``;
 the interior no-op goldens of ``tests/test_streaming.py``; checkpoint /
 resume bitwise, scheduled and past a corrupt newest step; ``sweep``'s
-``chunk_len`` routing; telemetry still refused.  ``cuda`` cases run the
+``chunk_len`` routing; what telemetry still refuses; a mid-stream
+checkpoint with the telemetry cursor, and a cursor-free state's field
+paths.  ``cuda`` cases run the
 streamed and decoded routes on the card (one ``sim_scan`` launch per
 segment) and hold them against the CPU route."""
+import dataclasses
 import json
 import os
 
@@ -31,6 +34,7 @@ from repro_torch.core import traces as ptr
 from repro_torch.core.sched import policies as ppol
 from repro_torch.core.timing import GEOM, SchedConfig, paper_config
 from repro_torch.kernels.sim_scan import sim_scan as scan
+from repro_torch.obs import WindowCollector
 
 CPU = "cpu"
 CACHED = ("lisa_villa", "figcache_slow", "figcache_fast", "figcache_ideal")
@@ -394,6 +398,59 @@ def test_checkpoint_validation(tmp_path):
         ckpt.restore_sim_state(str(tmp_path), state)
 
 
+def test_checkpoint_with_telemetry_resumes_bitwise(tmp_path):
+    """A telemetry stream checkpointed mid-way (every ``tel`` leaf saved)
+    and resumed with a fresh collector finishes bitwise: counters, final
+    cursor and cumulative planes, and the resumed windows equal the
+    uninterrupted run's windows of the same ordinals."""
+    tr = _pressure_trace()
+    cfg = dataclasses.replace(_cfg("figcache_fast", "frfcfs+drain"),
+                              telemetry=16, slo_ns=40)
+    full = WindowCollector()
+    want = pst.simulate_stream(pst.iter_chunks(tr, 32), cfg, device=CPU,
+                               telemetry=full, checkpoint_dir=str(tmp_path),
+                               checkpoint_every=3)
+    meta = json.loads((tmp_path / "step_9" / "manifest.json").read_text())
+    assert [p for p in meta["paths"] if p.startswith("tel.")] == \
+        [f"tel.win.{f}" for f in pd.TelemetryWindows._fields] + \
+        ["tel.hist", "tel.slo"]
+    col = WindowCollector()
+    got = pst.resume_stream(pst.iter_chunks(tr, 32), cfg, str(tmp_path),
+                            device=CPU, telemetry=col)
+    _assert_counters_equal(want, got, "resumed")
+    for k in ("hist", "slo"):
+        assert np.array_equal(full.cumulative()[k], col.cumulative()[k]), k
+    for a, b in zip(full._final.win, col._final.win):
+        assert torch.equal(a, b)
+    a, b = full.series(), col.series()
+    rows = np.isin(a["win_idx"], b["win_idx"])
+    assert 0 < rows.sum() < len(rows)
+    for k in a:
+        assert np.array_equal(a[k][rows], b[k], equal_nan=True), k
+
+
+def test_checkpoint_without_telemetry_keeps_its_field_paths(tmp_path):
+    """A ``tel=None`` state flattens to exactly the bank and counter
+    paths it had before the telemetry cursor existed (no ``tel`` leaf),
+    and restores from them."""
+    cfg = _cfg("figcache_fast")
+    state = pd.sim_init(cfg.static, device=CPU)
+    assert state.tel is None
+    ckpt.save_sim_state(str(tmp_path), 1, state)
+    meta = json.loads((tmp_path / "step_1" / "manifest.json").read_text())
+    bank = [f for f in pd.BankState._fields if f != "fts"]
+    want = [f"bank.{f}" for f in bank[:2]] + \
+        [f"bank.fts.{f}" for f in state.bank.fts._fields] + \
+        [f"bank.{f}" for f in bank[2:]] + \
+        [f"cnt.{f}" for f in pd.Counters._fields]
+    assert meta["paths"] == want and meta["n_leaves"] == 12 + 5 + 12
+    got, chunk = ckpt.restore_sim_state(str(tmp_path), state)
+    assert chunk == 1 and got.tel is None
+    for a, b in zip(scan._leaves(got.bank, got.cnt),
+                    scan._leaves(state.bank, state.cnt)):
+        assert torch.equal(a[1], b[1]), a[0]
+
+
 def test_checkpoint_leaf_types(tmp_path):
     """bf16 leaves are written as f32 and restored as bf16; numpy, dict and
     list leaves round-trip; the async writer snapshots at save()."""
@@ -446,16 +503,21 @@ def test_sweep_chunk_len_matches_jax():
 
 
 def test_telemetry_is_still_refused():
+    """Telemetry streams now (tests/test_torch_obs.py); what the JAX
+    package refuses stays refused: a collector without a telemetry
+    config, and telemetry under wavefront execution, with a collector or
+    without."""
     tr = _pressure_trace()
     cfg = paper_config("base", telemetry=32)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pst.simulate_stream(pst.iter_chunks(tr, 64), cfg, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="telemetry-enabled"):
         pst.simulate_stream(pst.iter_chunks(tr, 64), _cfg("base"),
-                            device=CPU, telemetry=object())
-    with pytest.raises(ValueError, match="ROADMAP"):
-        psim.sweep(tr, [cfg], (ptr.app_params("mcf"),), chunk_len=64,
-                   device=CPU)
+                            device=CPU, telemetry=WindowCollector())
+    with pytest.raises(ValueError, match="wavefront"):
+        pst.simulate_stream(pst.iter_chunks(tr, 64), cfg, device=CPU,
+                            telemetry=WindowCollector(), wavefront_exec=True)
+    with pytest.raises(ValueError, match="wavefront"):
+        pst.simulate_stream(pst.iter_chunks(tr, 64), cfg, device=CPU,
+                            wavefront_exec=True)
 
 
 # ---------------------------------------------------------------- the card
