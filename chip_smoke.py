@@ -1,6 +1,7 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
-simulator (its controllers, streamed replay, chunk codec and checkpoints
-too), the FIGCache-KV serving path and the dense LM serving path.
+simulator (its controllers, streamed replay, chunk codec, checkpoints and
+device workload generator too), the FIGCache-KV serving path and the dense
+LM serving path.
 
     python3 chip_smoke.py
 
@@ -129,14 +130,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    p99 / p999 with their bucket brackets, the SLO rate and
    figcache_fast's p99 gain; the tax at that trace's figcache_fast group
    (CUDA events, in turns) and on the monolithic route's wall;
-13. summary: one ``{"kernels": [...]}`` JSON line (device times from
+13. workload engine: fig 17's grid (benchmarks/fig17_scenarios.py:21,
+   common.scenario_specs, copied): the six families' presets at 8 cores x
+   4 channels x 6144 requests, seed 2, generated on the card and replayed
+   x 5 mechanisms through ``simulator.sweep_traces(specs, cfgs)`` (sim_scan
+   launches counted from 0 around it), its speedup summary; the results
+   bitwise equal to the same card-generated traces passed as Trace
+   entries, ``generate_many`` bitwise equal to per-spec ``generate``, each
+   family's streams before assembly on the card held against the CPU's
+   (the f32 clock within 1e-6 relative, Zipf ranks off by one on at most
+   1e-3, every other field bitwise; the mismatch fractions printed), and
+   figcache_fast on a 1024-request prefix against the eager loop; each
+   family's ``generate`` wall (synchronised) and device launches
+   (torch.profiler) and ``generate_many``'s peak device memory; then the
+   eight fig-8 mixes as ``spec_from_apps(apps, 4, 6144, seed=2)`` through
+   one ``generate_many`` on the card, in turns with ``traces.build_trace``
+   on the host, and ``summarize(characterize(...))`` of each pair;
+14. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
    launches, 0, a field apart; sim_scan's launches on each simulator path
-   of phases 4 and 9-12, counted from 0 around it, in ``path_launches``,
+   of phases 4 and 9-13, counted from 0 around it, in ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
    ``tel_tax``),
    the nvidia-smi line, and
@@ -169,7 +186,9 @@ from repro_torch import checkpoint  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import (dram, simulator, streaming, timing,  # noqa: E402
                               traces)
+from repro_torch.core import workload  # noqa: E402
 from repro_torch.core.sched import policies, wavefront  # noqa: E402
+from repro_torch.core.workload import generators  # noqa: E402
 from repro_torch.core import fts as fts_lib  # noqa: E402
 from repro_torch.figkv import embed_cache, kv_cache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -306,6 +325,18 @@ FIG16_WORKLOADS, FIG16_PER_CHANNEL, FIG16_EAGER_PER_CHANNEL = \
 TEL_GOLDEN_PERIOD, TEL_GOLDEN_SLO_NS = 32, 40
 TAIL_PERIOD, TAIL_SLO_NS, TAIL_CHUNK = 64, 150, 1024
 TAIL_MECHS, TAIL_EAGER_PREFIX = ("base", "figcache_fast"), 1024
+# the workload engine: fig 17's grid (benchmarks/fig17_scenarios.py:21 and
+# common.scenario_specs at QUICK_REQS_8CORE: every family's preset, 8 cores
+# x 4 channels x 6144 requests, seed 2), a static group's prefix held
+# against the eager loop, and the fig-8 mixes (common.ALL_WL) generated as
+# spec_from_apps(apps, 4, 6144, seed=2) beside traces.build_trace
+FIG17_MECHS = ("base", "lisa_villa", "figcache_fast", "figcache_ideal",
+               "lldram")
+FIG17_CORES, FIG17_SEED, GEN_EAGER_PREFIX = 8, 2, 1024
+# (c)'s bound of tests/test_torch_workload.py: the f32 clock within 1e-6
+# relative, Zipf-derived pages off by exactly one rank on at most 1e-3
+GEN_CLOCK_REL, GEN_ZIPF_FRAC = 1e-6, 1e-3
+GEN_EXACT = ("stream", "stride", "pointer_chase")
 
 
 def log(msg):
@@ -1883,6 +1914,187 @@ def phase_telemetry(dev, long_trace):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the workload engine on the card
+
+def device_launches(fn):
+    """Device kernels launched by ``fn()`` (torch.profiler, CUPTI); None
+    when the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def synced_s(fn, reps=3):
+    """Median synchronised wall of ``fn()`` over ``reps`` runs (s)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def streams_close(family, cpu, card):
+    """(c)'s bound: write flags bitwise, the clock within GEN_CLOCK_REL,
+    pages bitwise for GEN_EXACT and otherwise off by one rank on at most
+    GEN_ZIPF_FRAC of requests, columns equal where pages are; returns the
+    page and clock mismatch fractions."""
+    (tc, pc, cc, wc), (tg, pg, cg, wg) = cpu, [dram.host_array(x)
+                                               for x in card]
+    check(np.array_equal(wc, wg), f"{family}: card write flags differ")
+    rel = np.abs(tc - tg) / np.maximum(np.abs(tc), 1e-30)
+    check(rel.max() <= GEN_CLOCK_REL, f"{family}: card clock off by "
+          f"{rel.max():.3g} relative")
+    off = pc != pg
+    if family in GEN_EXACT:
+        check(not off.any(), f"{family}: card pages differ")
+    else:
+        check((np.abs(pc[off].astype(np.int64) - pg[off]) == 1).all()
+              and off.mean() <= GEN_ZIPF_FRAC,
+              f"{family}: card ranks off on {off.mean():.3g} of requests")
+    check(np.array_equal(cc[~off], cg[~off]), f"{family}: card columns "
+          "differ")
+    return float(off.mean()), float((tc != tg).mean())
+
+
+def same_counters(a, b, what):
+    for f, x, y in zip(dram.Counters._fields, a.counters, b.counters):
+        check(np.array_equal(x, y), f"{what} {f} differs")
+
+
+def phase_workloads(dev):
+    """Fig 17's grid generated on the card and replayed through sim_scan by
+    ``simulator.sweep_traces(specs, cfgs)``, held against the same traces
+    passed as Trace entries, ``generate_many`` against per-spec
+    ``generate``, the card's streams and whole traces against the CPU's,
+    and one group's prefix against the eager loop; generation times,
+    launches and peak memory; then the fig-8 mixes generated on the card
+    in turns with ``traces.build_trace`` on the host."""
+    t_phase = time.perf_counter()
+    specs = [workload.preset(f, n_cores=FIG17_CORES, n_channels=N_CHANNELS,
+                             per_channel=PER_CHANNEL, seed=FIG17_SEED)
+             for f in workload.FAMILIES]
+    cfgs = simulator.mech_grid(FIG17_MECHS, None)
+    scan_kernel.COUNTER.launches = 0
+    res, wall, peak = timed_route(
+        lambda: simulator.sweep_traces(specs, cfgs, device=dev))
+    launches = scan_kernel.COUNTER.launches
+    check(launches > 0, "fig 17's grid launched sim_scan no time")
+    log(f"[workload] fig 17: {len(specs)} families x {FIG17_CORES} cores x "
+        f"{N_CHANNELS} channels x {PER_CHANNEL} requests generated on the "
+        f"card, x {len(cfgs)} mechanisms through sim_scan: {wall:.3f} s, "
+        f"{launches} sim_scan launches, peak {peak / 2**20:.1f} MiB")
+    summary = {}
+    for spec, per_cfg in zip(specs, res):
+        for x in per_cfg:
+            check(np.isfinite(x.ipc).all() and (x.ipc > 0).all(),
+                  f"fig 17 {spec.family} {x.mechanism}: non-finite result")
+        sp = simulator.speedup_summary(dict(zip(FIG17_MECHS, per_cfg)))
+        summary[spec.family] = {m: v for m, v in sp.items() if m != "base"}
+        log(f"[workload]   {spec.family:14s} " + ", ".join(
+            f"{m}={v:.4f}" for m, v in summary[spec.family].items()))
+
+    # the same card-generated traces as Trace entries: bitwise
+    many = workload.generate_many(specs, device=dev)
+    ref = simulator.sweep_traces(many, cfgs, [s.apps() for s in specs],
+                                 device=dev)
+    for spec, a, b in zip(specs, res, ref):
+        for x, y in zip(a, b):
+            same_counters(x, y, f"fig 17 {spec.family} {x.mechanism}: spec "
+                          "entry vs Trace entry")
+    # generate_many against per-spec generate, on the card
+    for spec, tr in zip(specs, many):
+        one = workload.generate(spec, device=dev)
+        for f, x, y in zip(dram.Trace._fields, one, tr):
+            check(torch.equal(x, y), f"{spec.family} {f}: generate_many "
+                  "differs from generate")
+    log("[workload] spec entries == Trace entries on every counter; "
+        "generate_many == per-spec generate on every leaf")
+
+    # each family's streams before assembly: card against CPU
+    gen_ms, gen_launches, mismatch = {}, {}, {}
+    for spec in specs:
+        fam = spec.family
+        cpu = [x.numpy() for x in generators.family_streams(spec, "cpu")]
+        mismatch[fam] = streams_close(
+            fam, cpu, generators.family_streams(spec, dev))
+        # channel assembly (sorts, bincount, gathers) on the card against
+        # the CPU's, on every leaf of the whole trace
+        host = workload.generate(spec, device="cpu")
+        card = workload.generate(spec, device=dev)
+        for f, x, y in zip(dram.Trace._fields, host, card):
+            check(torch.equal(x, y.cpu()), f"{fam} {f}: the card's generate "
+                  "differs from the CPU's")
+        gen_ms[fam] = synced_s(
+            lambda: workload.generate(spec, device=dev), reps=5) * 1e3
+        gen_launches[fam] = device_launches(
+            lambda: workload.generate(spec, device=dev))
+        log(f"[workload]   {fam:14s} generate {gen_ms[fam]:.3f} ms "
+            f"(synchronised, median of 5), {gen_launches[fam]} device "
+            f"launches; card vs CPU: rank mismatch {mismatch[fam][0]}, "
+            f"clock mismatch {mismatch[fam][1]}, generate == on every leaf")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    workload.generate_many(specs, device=dev)
+    torch.cuda.synchronize()
+    gen_peak = torch.cuda.max_memory_allocated() - live
+    log(f"[workload] generate_many of the six specs: peak device memory "
+        f"{gen_peak / 2**20:.1f} MiB above the live {live / 2**20:.1f} MiB")
+
+    # one static group on a prefix: sim_scan against the eager loop
+    spec = specs[0]
+    small = dram.Trace(*[x[:, :GEN_EAGER_PREFIX] for x in many[0]])
+    cfg = [timing.paper_config("figcache_fast")]
+    kern = simulator.sweep(small, cfg, spec.apps(), device=dev)[0]
+    with patched(dram, _advance=dram._advance_eager):
+        eager = simulator.sweep(small, cfg, spec.apps(), device=dev)[0]
+    same_counters(kern, eager, f"{spec.family} figcache_fast prefix: "
+                  "sim_scan vs eager loop")
+    log(f"[workload] {spec.family} figcache_fast at a {GEN_EAGER_PREFIX}-"
+        "request prefix: sim_scan == eager loop on every counter")
+
+    # the fig-8 mixes: one generate_many on the card, in turns with the
+    # numpy oracle's build_trace on the host
+    all_wl = traces.eight_core_workloads()
+    apps = [all_wl[i][2] for i in FIG8_WORKLOADS]
+    mix = [workload.spec_from_apps(a, N_CHANNELS, PER_CHANNEL, FIG17_SEED)
+           for a in apps]
+    routes = {"generate_many": lambda: workload.generate_many(mix,
+                                                               device=dev),
+              "build_trace": lambda: [traces.build_trace(
+                  a, N_CHANNELS, PER_CHANNEL, FIG17_SEED) for a in apps]}
+    walls = {k: [] for k in routes}
+    out = {}
+    for k in ("generate_many", "build_trace", "build_trace",
+              "generate_many"):
+        out[k], secs, _ = timed_route(routes[k])
+        walls[k].append(secs)
+    mix_launches = device_launches(routes["generate_many"])
+    log(f"[workload] fig-8 mixes ({len(mix)} x {FIG17_CORES} cores x "
+        f"{N_CHANNELS} x {PER_CHANNEL}), in turns: generate_many on the "
+        f"card {walls['generate_many']} s ({mix_launches} device launches), "
+        f"build_trace on the host {walls['build_trace']} s")
+    for w, g, b in zip(FIG8_WORKLOADS, out["generate_many"],
+                       out["build_trace"]):
+        for label, tr in (("card", g), ("host", b)):
+            log(f"[workload]   W{w} {label} "
+                f"{workload.summarize(workload.characterize(tr))}")
+    log(f"[workload] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "wall": wall, "summary": summary,
+            "gen_ms": gen_ms, "gen_launches": gen_launches,
+            "mismatch": mismatch, "gen_peak": gen_peak,
+            "mix_walls": walls, "mix_launches": mix_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the FIGCache-KV path
 
 def phase_figkv(dev):
@@ -2425,6 +2637,7 @@ def main():
     long_run = phase_long_trace(dev)
     grid16 = phase_controller_grid(dev)
     telem = phase_telemetry(dev, long_run.pop("trace"))
+    gen = phase_workloads(dev)
     figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
@@ -2468,7 +2681,8 @@ def main():
                           "controllers": ctl["launches"],
                           "long_trace": long_run["launches"],
                           "controller_grid": grid16["launches"],
-                          "telemetry": telem["launches"]}})
+                          "telemetry": telem["launches"],
+                          "workloads": gen["launches"]}})
     for path, n in rows[-1]["path_launches"].items():
         check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step

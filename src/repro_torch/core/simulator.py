@@ -23,9 +23,10 @@ A config with telemetry windows (``MechConfig.telemetry``) replays through
 the telemetry route and returns the same results; the windows themselves
 are collected by ``streaming`` with an ``obs.WindowCollector``.
 
-Not ported yet (ROADMAP.md, Queue 1): device-generated workloads
-(``WorkloadSpec`` entries, ``run_scenario``), which raise
-``NotImplementedError``.
+Device-generated workloads (DESIGN.md §11): ``sweep_traces`` takes
+``workload.WorkloadSpec`` entries beside traces and ``run_scenario`` runs
+the mechanisms on one spec; their traces are synthesized on the call's
+device by ``workload.generate_many`` / ``generate``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from repro_torch.convert import counters_to_numpy
-from repro_torch.core import dram, streaming, traces
+from repro_torch.core import dram, streaming, traces, workload
 from repro_torch.core.sched import policies as sched_policies
 from repro_torch.core.energy import ENERGY
 from repro_torch.core.timing import (DDR4, DRAMTimings, MechConfig,
@@ -50,9 +51,6 @@ MLP_NON = 1.4
 
 PAPER_MECHS = ("base", "lisa_villa", "figcache_slow", "figcache_fast",
                "figcache_ideal", "lldram")
-
-_LATER = "(not ported to repro_torch yet; see ROADMAP.md, Queue 1)"
-
 
 @dataclasses.dataclass
 class RunResult:
@@ -193,21 +191,42 @@ def sweep(trace: dram.Trace, cfgs: Sequence[MechConfig],
 def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
                  t: DRAMTimings = DDR4, chunk_len: int | None = None,
                  device=None) -> List[List[RunResult]]:
-    """Cross-workload batching: W numpy traces x N configs in one replay
-    per static structure.  Workloads stack on the channel axis ((T,) traces
-    to (W, T), (C, T) traces to (W*C, T)); unequal lengths are right-padded
+    """Cross-workload batching: W traces x N configs in one replay per
+    static structure.  Workloads stack on the channel axis ((T,) traces to
+    (W, T), (C, T) traces to (W*C, T)); unequal lengths are right-padded
     with no-ops.  Returns ``results[w][i]``, bitwise-equal to per-workload
     ``sweep`` calls.  Each workload is scheduled before the no-op padding,
     so padding stays a suffix; ``chunk_len`` streams the stacked workloads
-    as ``sweep`` does."""
+    as ``sweep`` does.
+
+    Entries may also be ``workload.WorkloadSpec``s: their traces are
+    generated on the call's device by one ``workload.generate_many`` call
+    (specs of one structure as one batch).  ``apps_list`` may be omitted
+    when every entry is a spec; with mixed entries, ``None`` at a spec's
+    position takes the spec's ``apps()``."""
     trs = list(trs)
     if not trs:
         raise ValueError("need at least one workload")
-    if any(not isinstance(tr, dram.Trace) for tr in trs):
-        raise NotImplementedError(f"device-generated workloads {_LATER}; "
-                                  "pass numpy dram.Trace entries")
-    if apps_list is None or len(apps_list) != len(trs):
+    kinds = (dram.Trace, workload.WorkloadSpec)
+    bad = [type(x).__name__ for x in trs if not isinstance(x, kinds)]
+    if bad:
+        raise TypeError(f"entries must be dram.Trace or WorkloadSpec: {bad}")
+    spec_idx = [i for i, x in enumerate(trs)
+                if isinstance(x, workload.WorkloadSpec)]
+    if apps_list is None:
+        if len(spec_idx) != len(trs):
+            raise ValueError("apps_list may be omitted only when every "
+                             "entry is a WorkloadSpec")
+        apps_list = [None] * len(trs)
+    if len(apps_list) != len(trs):
         raise ValueError("one apps tuple per trace")
+    apps_list = [trs[i].apps() if a is None else a
+                 for i, a in enumerate(apps_list)]
+    if spec_idx:
+        gen = workload.generate_many([trs[i] for i in spec_idx],
+                                     device=device)
+        for i, tr in zip(spec_idx, gen):
+            trs[i] = tr
     ndims = {np.ndim(tr.t_issue) for tr in trs}
     if len(ndims) != 1:
         raise ValueError(f"traces must agree on channel layout: {ndims}")
@@ -225,7 +244,7 @@ def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
         per controller)."""
         if sc not in stacked:
             padded = [dram.noop_pad(dram.Trace(*[
-                np.asarray(x) for x in sched_policies.schedule(tr, sc)]),
+                dram.host_array(x) for x in sched_policies.schedule(tr, sc)]),
                 t_max) for tr in trs]
             stacked[sc] = dram.Trace(*[join(xs, axis=0)
                                        for xs in zip(*padded)])
@@ -317,11 +336,16 @@ def run_eight_core_batch(workloads, mechanisms=PAPER_MECHS,
     return [dict(zip(mechanisms, r)) for r in res]
 
 
-def run_scenario(spec, mechanisms=PAPER_MECHS,
-                 cfg_overrides: dict | None = None, device=None):
-    """Device-generated scenarios need the workload engine, which is not
-    ported yet."""
-    raise NotImplementedError(f"run_scenario / WorkloadSpec {_LATER}")
+def run_scenario(spec: workload.WorkloadSpec, mechanisms=PAPER_MECHS,
+                 cfg_overrides: dict | None = None, device=None
+                 ) -> Dict[str, RunResult]:
+    """Evaluate the paper mechanisms on one device-generated scenario
+    (DESIGN.md §11): the workload counterpart of ``run_single_core`` /
+    ``run_eight_core``, with the trace synthesized on ``device``."""
+    res = sweep(workload.generate(spec, device=device),
+                mech_grid(mechanisms, cfg_overrides), spec.apps(),
+                device=device)
+    return dict(zip(mechanisms, res))
 
 
 def speedup_summary(results: Dict[str, RunResult]) -> Dict[str, float]:

@@ -14,6 +14,7 @@ from repro.core import traces as jtr
 from repro_torch.core import simulator as ps
 from repro_torch.core import timing as pt
 from repro_torch.core import traces as ptr
+from repro_torch.core import workload as pw
 
 CPU = "cpu"
 
@@ -108,17 +109,26 @@ def test_sweep_chunk_len_matches_jax():
 
 
 def test_unported_simulator_paths_raise():
-    """What is still unported raises with a pointer to ROADMAP.md:
-    device-generated workloads (WorkloadSpec entries, run_scenario).
-    Telemetry windows, unported before, now run: a telemetry config's
-    results equal the telemetry-off config's, monolithic and streamed."""
+    """Device-generated workloads, unported before, now run: a
+    ``WorkloadSpec`` entry beside a numpy trace (its apps given as None)
+    gives the results of passing its generated trace, and an entry that is
+    neither a trace nor a spec still raises.  Telemetry windows, unported
+    before, now run: a telemetry config's results equal the telemetry-off
+    config's, monolithic and streamed."""
     a = ptr.app_params("mcf")
     tr = ptr.build_trace([a], 1, 64, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    spec = pw.preset("embed", n_cores=1, n_channels=1, per_channel=64,
+                     seed=2)
+    cfgs = [pt.paper_config("base"), pt.paper_config("figcache_fast")]
+    mixed = ps.sweep_traces([tr, spec], cfgs, [(a,), None], device=CPU)
+    ref = ps.sweep_traces([tr, pw.generate(spec, device=CPU)], cfgs,
+                          [(a,), spec.apps()], device=CPU)
+    for w in range(2):
+        for i in range(len(cfgs)):
+            _assert_result_equal(ref[w][i], mixed[w][i], ("mixed", w, i))
+    with pytest.raises(TypeError, match="WorkloadSpec"):
         ps.sweep_traces([tr, object()], [pt.paper_config("base")],
                         [(a,), (a,)], device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.run_scenario(object(), device=CPU)
     tel = pt.paper_config("base", telemetry=32)
     off = ps.sweep(tr, [pt.paper_config("base")], (a,), device=CPU)[0]
     _assert_result_equal(off, ps.sweep(tr, [tel], (a,), device=CPU)[0],
