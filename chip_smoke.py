@@ -1,7 +1,7 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
-simulator (its controllers, streamed replay, chunk codec, checkpoints and
-device workload generator too), the FIGCache-KV serving path and the dense
-LM serving path.
+simulator (its controllers, streamed replay, chunk codec, checkpoints,
+device workload generator and fault-tolerant sweep orchestrator too), the
+FIGCache-KV serving path and the dense LM serving path.
 
     python3 chip_smoke.py
 
@@ -137,23 +137,35 @@ Phases, each of which raises (non-zero exit) on any failed check:
    launches counted from 0 around it), its speedup summary; the results
    bitwise equal to the same card-generated traces passed as Trace
    entries, ``generate_many`` bitwise equal to per-spec ``generate``, each
-   family's streams before assembly on the card held against the CPU's
-   (the f32 clock within 1e-6 relative, Zipf ranks off by one on at most
-   1e-3, every other field bitwise; the mismatch fractions printed), and
+   family's streams before assembly and whole trace on the card bitwise
+   equal to the CPU's, and
    figcache_fast on a 1024-request prefix against the eager loop; each
    family's ``generate`` wall (synchronised) and device launches
    (torch.profiler) and ``generate_many``'s peak device memory; then the
    eight fig-8 mixes as ``spec_from_apps(apps, 4, 6144, seed=2)`` through
    one ``generate_many`` on the card, in turns with ``traces.build_trace``
    on the host, and ``summarize(characterize(...))`` of each pair;
-14. summary: one ``{"kernels": [...]}`` JSON line (device times from
+14. orchestration: fig 17's grid of phase 13 through
+   ``launch.orchestrator`` (30 shards, 6 segments of 1024 requests each,
+   checkpointed after every segment), uninterrupted and killed at shard 7
+   segment 3 (``mode="raise"``) then resumed, each run's
+   ``counters_by_config`` bitwise equal to ``sweep_traces(specs, cfgs,
+   chunk_len=1024)`` on the card; each run's wall, sim_scan launches
+   (counted from 0 around it), ``generate`` calls and their share of the
+   wall, checkpoint saves and restores with their seconds, peak device
+   memory, and the checkpoint bytes on disk; the CLI in fresh processes:
+   ``run --kill 1:1 --kill-mode sigkill`` returns -9, ``run`` resumes,
+   ``compare`` returns 0; ``xla_math``'s log1p and the Zipf inversion's
+   pow / exp / log over all 2**23 uniforms at the presets' knobs, the
+   card's bits equal to the CPU's;
+15. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
    launches, 0, a field apart; sim_scan's launches on each simulator path
-   of phases 4 and 9-13, counted from 0 around it, in ``path_launches``,
+   of phases 4 and 9-14, counted from 0 around it, in ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
    ``tel_tax``),
    the nvidia-smi line, and
@@ -211,7 +223,11 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.fts_lookup import fts_lookup as fts_kernel  # noqa: E402
 from repro_torch.kernels.fts_lookup.ref import fts_lookup_ref  # noqa: E402
 from repro_torch.kernels.sim_scan import sim_scan as scan_kernel  # noqa: E402
+from repro_torch.core.workload import xla_math  # noqa: E402
+from repro_torch.launch import orchestrator as orch_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.runtime.faults import (FaultEvent, FaultPlan,  # noqa: E402
+                                        InjectedKill)
 from repro_torch.models import attention  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
@@ -333,10 +349,14 @@ TAIL_MECHS, TAIL_EAGER_PREFIX = ("base", "figcache_fast"), 1024
 FIG17_MECHS = ("base", "lisa_villa", "figcache_fast", "figcache_ideal",
                "lldram")
 FIG17_CORES, FIG17_SEED, GEN_EAGER_PREFIX = 8, 2, 1024
-# (c)'s bound of tests/test_torch_workload.py: the f32 clock within 1e-6
-# relative, Zipf-derived pages off by exactly one rank on at most 1e-3
-GEN_CLOCK_REL, GEN_ZIPF_FRAC = 1e-6, 1e-3
-GEN_EXACT = ("stream", "stride", "pointer_chase")
+# orchestration: fig 17's grid (the specs and mechanisms above) as 30
+# durable shards of 6 segments, checkpointed after every segment, run
+# uninterrupted and killed at (shard, segment) then resumed; the CLI's
+# ci_grid killed by a real SIGKILL at ORCH_CLI_KILL
+ORCH_CHUNK, ORCH_KILL, ORCH_CLI_KILL = 1024, (7, 3), "1:1"
+# the transcendentals' knob pairs held card against CPU over every uniform:
+# zipf_a 1.1 / 1.2 x n_pages 1024 to 8192 (the presets' values)
+XLA_KNOBS = [(n, a) for a in (1.1, 1.2) for n in (1024, 2048, 4096, 8192)]
 
 
 def log(msg):
@@ -1941,27 +1961,15 @@ def synced_s(fn, reps=3):
     return statistics.median(out)
 
 
-def streams_close(family, cpu, card):
-    """(c)'s bound: write flags bitwise, the clock within GEN_CLOCK_REL,
-    pages bitwise for GEN_EXACT and otherwise off by one rank on at most
-    GEN_ZIPF_FRAC of requests, columns equal where pages are; returns the
-    page and clock mismatch fractions."""
-    (tc, pc, cc, wc), (tg, pg, cg, wg) = cpu, [dram.host_array(x)
-                                               for x in card]
-    check(np.array_equal(wc, wg), f"{family}: card write flags differ")
-    rel = np.abs(tc - tg) / np.maximum(np.abs(tc), 1e-30)
-    check(rel.max() <= GEN_CLOCK_REL, f"{family}: card clock off by "
-          f"{rel.max():.3g} relative")
-    off = pc != pg
-    if family in GEN_EXACT:
-        check(not off.any(), f"{family}: card pages differ")
-    else:
-        check((np.abs(pc[off].astype(np.int64) - pg[off]) == 1).all()
-              and off.mean() <= GEN_ZIPF_FRAC,
-              f"{family}: card ranks off on {off.mean():.3g} of requests")
-    check(np.array_equal(cc[~off], cg[~off]), f"{family}: card columns "
-          "differ")
-    return float(off.mean()), float((tc != tg).mean())
+def streams_equal(family, cpu, card):
+    """(c)'s contract of tests/test_torch_workload.py: every stream before
+    assembly (the f32 clock, pages, columns, write flags) bitwise."""
+    for name, a, b in zip(("clock", "pages", "columns", "write flags"), cpu,
+                          [dram.host_array(x) for x in card]):
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        check(np.array_equal(a, b), f"{family}: card {name} differ from "
+              "the CPU's")
 
 
 def same_counters(a, b, what):
@@ -2019,12 +2027,11 @@ def phase_workloads(dev):
         "generate_many == per-spec generate on every leaf")
 
     # each family's streams before assembly: card against CPU
-    gen_ms, gen_launches, mismatch = {}, {}, {}
+    gen_ms, gen_launches = {}, {}
     for spec in specs:
         fam = spec.family
         cpu = [x.numpy() for x in generators.family_streams(spec, "cpu")]
-        mismatch[fam] = streams_close(
-            fam, cpu, generators.family_streams(spec, dev))
+        streams_equal(fam, cpu, generators.family_streams(spec, dev))
         # channel assembly (sorts, bincount, gathers) on the card against
         # the CPU's, on every leaf of the whole trace
         host = workload.generate(spec, device="cpu")
@@ -2038,8 +2045,8 @@ def phase_workloads(dev):
             lambda: workload.generate(spec, device=dev))
         log(f"[workload]   {fam:14s} generate {gen_ms[fam]:.3f} ms "
             f"(synchronised, median of 5), {gen_launches[fam]} device "
-            f"launches; card vs CPU: rank mismatch {mismatch[fam][0]}, "
-            f"clock mismatch {mismatch[fam][1]}, generate == on every leaf")
+            f"launches; card vs CPU: streams == and generate == on every "
+            "leaf")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated()
@@ -2090,8 +2097,191 @@ def phase_workloads(dev):
     log(f"[workload] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "wall": wall, "summary": summary,
             "gen_ms": gen_ms, "gen_launches": gen_launches,
-            "mismatch": mismatch, "gen_peak": gen_peak,
+            "gen_peak": gen_peak,
             "mix_walls": walls, "mix_launches": mix_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: fault-tolerant orchestration of fig 17's grid
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def same_by_config(got, oracle, what):
+    """``counters_by_config`` against ``sweep_traces`` results, bitwise."""
+    check(len(got) == sum(len(r) for r in oracle),
+          f"{what}: {len(got)} configs, want {sum(len(r) for r in oracle)}")
+    for (w, i), cnt in got.items():
+        for f, x, y in zip(dram.Counters._fields, cnt,
+                           oracle[w][i].counters):
+            check(np.array_equal(x, y), f"{what}: w={w} cfg={i} {f} "
+                  "differs from sweep_traces")
+
+
+def orchestrated(plan, run_dir, dev, fault_plan=None):
+    """Run ``plan`` under ``run_dir`` on ``dev``; returns the orchestrator,
+    the synchronised wall, the sim_scan launches counted from 0, the
+    ``generate`` calls and seconds, the checkpoint save and restore
+    seconds, and the peak device memory above what was live.  An injected
+    kill ends the run early (the kill is recorded, not raised)."""
+    acct = {"generate": [0, 0.0], "save": [0, 0.0], "restore": [0, 0.0]}
+
+    def clocked(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acct[key][0] += 1
+                acct[key][1] += time.perf_counter() - t0
+        return run
+    o = orch_mod.Orchestrator(plan, str(run_dir), checkpoint_every=1,
+                              backoff_s=0.0, fault_plan=fault_plan,
+                              devices=[dev])
+    status, killed = None, False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    scan_kernel.COUNTER.launches = 0
+    t0 = time.perf_counter()
+    with patched(workload, generate=clocked("generate", workload.generate)), \
+            patched(checkpoint,
+                    save_checkpoint=clocked("save",
+                                            checkpoint.save_checkpoint),
+                    restore_latest=clocked("restore",
+                                           checkpoint.restore_latest)):
+        try:
+            status = o.run()
+        except InjectedKill:
+            killed = True
+    torch.cuda.synchronize()
+    return dict(orch=o, status=status, wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() - live, killed=killed,
+                launches=scan_kernel.COUNTER.launches, acct=acct)
+
+
+def cli(*args):
+    """The orchestrator's CLI in a fresh process on the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.orchestrator", *args],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
+
+
+def phase_orchestration(dev):
+    """Fig 17's grid as 30 durable shards on the card, uninterrupted and
+    killed + resumed, each bitwise equal to ``sweep_traces``; the CLI's
+    real SIGKILL round trip; the transcendentals card against CPU over
+    every uniform."""
+    import shutil
+    t_phase = time.perf_counter()
+    specs = [workload.preset(f, n_cores=FIG17_CORES, n_channels=N_CHANNELS,
+                             per_channel=PER_CHANNEL, seed=FIG17_SEED)
+             for f in workload.FAMILIES]
+    cfgs = simulator.mech_grid(FIG17_MECHS, None)
+    plan = orch_mod.make_plan(specs, cfgs, chunk_len=ORCH_CHUNK)
+    n_seg = -(-PER_CHANNEL // ORCH_CHUNK)
+    check(len(plan.shards) == len(specs) * len(cfgs) == 30,
+          f"fig 17's plan has {len(plan.shards)} shards, want 30")
+    scan_kernel.COUNTER.launches = 0
+    oracle, mono_wall, mono_peak = timed_route(lambda: simulator.sweep_traces(
+        specs, cfgs, chunk_len=ORCH_CHUNK, device=dev))
+    mono_launches = scan_kernel.COUNTER.launches
+    log(f"[orch] fig 17 plan: {len(plan.shards)} shards x {n_seg} segments "
+        f"of {ORCH_CHUNK}, grid {plan.grid_hash}; sweep_traces(chunk_len="
+        f"{ORCH_CHUNK}) on the card: {mono_wall:.3f} s, {mono_launches} "
+        f"sim_scan launches, peak {mono_peak / 2**20:.1f} MiB")
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_orch_"))
+    runs = {}
+    try:
+        run = orchestrated(plan, root / "whole", dev)
+        check(run["status"] == {"done": len(plan.shards)},
+              f"orchestrated run ended {run['status']}")
+        same_by_config(run["orch"].counters_by_config(), oracle,
+                       "orchestrated fig 17")
+        runs["orchestrated"] = run
+        fp = FaultPlan([FaultEvent(kind="kill", shard=ORCH_KILL[0],
+                                   segment=ORCH_KILL[1], mode="raise")])
+        first = orchestrated(plan, root / "killed", dev, fp)
+        check(first["killed"], "the injected kill did not fire")
+        resumed = orchestrated(plan, root / "killed", dev, fp)
+        check(resumed["status"] == {"done": len(plan.shards)},
+              f"resumed run ended {resumed['status']}")
+        same_by_config(resumed["orch"].counters_by_config(), oracle,
+                       "killed + resumed fig 17")
+        runs["killed"], runs["resumed"] = first, resumed
+        for name, r in runs.items():
+            a = r["acct"]
+            log(f"[orch] {name}: wall {r['wall']} s, {r['launches']} sim_scan"
+                f" launches, {a['generate'][0]} generate calls "
+                f"{a['generate'][1]} s ({a['generate'][1] / r['wall']} of the "
+                f"wall), {a['save'][0]} checkpoint saves {a['save'][1]} s, "
+                f"{a['restore'][0]} restore calls {a['restore'][1]} s, peak "
+                f"device memory {r['peak'] / 2**20:.1f} MiB")
+        ckpt_bytes = dir_bytes(root / "whole" / "shards")
+        log(f"[orch] checkpoints + results of the uninterrupted run: "
+            f"{ckpt_bytes} bytes on disk; counters_by_config == "
+            "sweep_traces on every field of all 30 configs, uninterrupted "
+            f"and killed at shard {ORCH_KILL[0]} segment {ORCH_KILL[1]} + "
+            "resumed")
+        check(runs["killed"]["launches"] + runs["resumed"]["launches"] ==
+              runs["orchestrated"]["launches"] == len(plan.shards) * n_seg,
+              "the killed + resumed run replayed a segment twice or "
+              "skipped one")
+
+        # the CLI: a real SIGKILL, a resume, and compare
+        d = str(root / "cli")
+        t0 = time.perf_counter()
+        r = cli("run", "--run-dir", d, "--kill", ORCH_CLI_KILL,
+                "--kill-mode", "sigkill")
+        check(r.returncode == -9, f"CLI run with SIGKILL returned "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        r2 = cli("run", "--run-dir", d)
+        check(r2.returncode == 0, f"CLI resume returned {r2.returncode}: "
+              f"{r2.stderr[-2000:]}")
+        r3 = cli("compare", "--run-dir", d)
+        check(r3.returncode == 0 and "bitwise equal" in r3.stdout,
+              f"CLI compare returned {r3.returncode}: {r3.stdout[-2000:]}")
+        cli_s = time.perf_counter() - t0
+        log(f"[orch] CLI: run --kill {ORCH_CLI_KILL} --kill-mode sigkill -> "
+            f"{r.returncode}; run -> {r2.stdout.strip()}; compare -> "
+            f"{r3.stdout.strip()} "
+            f"({cli_s:.1f} s, three processes)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the transcendentals: the card's bits are the CPU's over every u
+    t0 = time.perf_counter()
+    u = torch.arange(2 ** 23, dtype=torch.int64).float() * 2.0 ** -23
+    ud = u.to(dev)
+
+    def zipf_k(x, n_pages, a):
+        n = torch.tensor(n_pages, dtype=torch.int32, device=x.device).float()
+        safe = 1.0 - torch.tensor(a, dtype=torch.float32, device=x.device)
+        return (xla_math.pow_f32(xla_math.fma_f32(
+                    x, xla_math.pow_f32(n, safe) - 1.0, 1.0), 1.0 / safe),
+                xla_math.exp_f32(x * xla_math.log_f32(n)))
+    arg = -torch.clamp_max(u, 0.999999)
+    check(torch.equal(xla_math.log1p_f32(arg),
+                      xla_math.log1p_f32(arg.to(dev)).cpu()),
+          "log1p_f32: the card differs from the CPU")
+    for n, a in XLA_KNOBS:
+        for name, x, y in zip(("pow", "exp/log"), zipf_k(u, n, a),
+                              zipf_k(ud, n, a)):
+            check(torch.equal(x, y.cpu()), f"{name} at n={n} a={a}: the "
+                  "card differs from the CPU")
+    log(f"[orch] xla_math on the card == the CPU over all 2**23 u: log1p, "
+        f"and pow / exp / log at {len(XLA_KNOBS)} knob pairs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[orch] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": runs["orchestrated"]["launches"],
+            "mono_wall": mono_wall, "mono_launches": mono_launches,
+            "walls": {k: r["wall"] for k, r in runs.items()},
+            "ckpt_bytes": ckpt_bytes}
 
 
 # ---------------------------------------------------------------------------
@@ -2638,6 +2828,7 @@ def main():
     grid16 = phase_controller_grid(dev)
     telem = phase_telemetry(dev, long_run.pop("trace"))
     gen = phase_workloads(dev)
+    orch = phase_orchestration(dev)
     figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
@@ -2682,7 +2873,8 @@ def main():
                           "long_trace": long_run["launches"],
                           "controller_grid": grid16["launches"],
                           "telemetry": telem["launches"],
-                          "workloads": gen["launches"]}})
+                          "workloads": gen["launches"],
+                          "orchestration": orch["launches"]}})
     for path, n in rows[-1]["path_launches"].items():
         check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step

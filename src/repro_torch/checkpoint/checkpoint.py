@@ -21,8 +21,10 @@ unreadable file, never restoring garbage silently, and never through a
 bare ``assert``.  ``restore_latest`` walks the committed steps newest first
 and *skips* any step that fails validation, so a corrupted latest
 checkpoint degrades to the previous committed one.  Tensor leaves restore
-onto the device of ``like``'s leaf.  Leaves numpy cannot hold (bfloat16)
-are written as float32 with their own dtype in the manifest.
+onto the device of ``like``'s leaf; a ``like`` leaf on the meta device
+(shape and dtype only, the port's abstract ``like``) restores to the CPU.
+Leaves numpy cannot hold (bfloat16) are written as float32 with their own
+dtype in the manifest.
 """
 from __future__ import annotations
 
@@ -155,8 +157,9 @@ def latest_step(path: str) -> Optional[int]:
 
 def _restore_leaf(arr: np.ndarray, dtype: str, target):
     if isinstance(target, torch.Tensor):
+        dev = "cpu" if target.is_meta else target.device
         return torch.from_numpy(arr).to(dtype=getattr(torch, dtype),
-                                        device=target.device)
+                                        device=dev)
     return arr if str(arr.dtype) == dtype else arr.astype(dtype)
 
 

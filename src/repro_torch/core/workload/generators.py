@@ -16,13 +16,13 @@ tensor ops over the request index, on the CUDA device by default:
    sort by (channel, arrival) and truncate; an under-filled channel is
    completed with no-op requests (``dram.NOOP_ISSUE``).
 
-Transcendentals (``log1p``, ``log``, ``exp``, ``pow``) are evaluated in
-float64 and rounded once to float32: the JAX package's f32 polynomials are
-XLA's own and are not reproduced, and the float64 route gives one value per
-input on every device and at every position in a batch (torch's f32
-``pow`` on the CPU does not).  Bounded-Zipf ranks therefore differ from the
-JAX package's by one on a few draws in 1e4 and arrival clocks by an ulp;
-every other field is bitwise (``tests/test_torch_workload.py``).
+Transcendentals (``log1p``, ``log``, ``exp``, ``pow``) are the JAX
+package's own f32 routines (``xla_math``: XLA's inline polynomials with
+its fused multiply-adds, and glibc's ``powf``), in torch ops that give one
+value per input on every device and at every position in a batch.  The
+``u * (n ** s - 1) + 1`` of the Zipf inversion is one ``fmaf``, as XLA
+contracts it.  Every field of every family is bitwise the JAX package's
+(``tests/test_torch_workload.py``).
 
 One generator structure is built per ``WorkloadSpec.static_key``;
 ``generate_many`` runs the specs of one structure as one batch over a
@@ -42,6 +42,8 @@ from repro_torch.core.timing import GEOM, DRAMGeometry
 from repro_torch.core.workload import rng
 from repro_torch.core.workload.params import (MAX_CONTEXTS, SEG16, SPR,
                                               WorkloadParams, WorkloadSpec)
+from repro_torch.core.workload.xla_math import (exp_f32, fma_f32, log1p_f32,
+                                                log_f32, pow_f32)
 from repro_torch.device import resolve_device
 
 I32 = torch.int32
@@ -55,25 +57,6 @@ GEN_TRACE_LOG: List[str] = []
 
 def gen_trace_count() -> int:
     return len(GEN_TRACE_LOG)
-
-
-# ---------------------------------------------------------------------------
-# transcendentals: float64, rounded once to float32
-
-def _log1p(x):
-    return torch.log1p(x.double()).float()
-
-
-def _log(x):
-    return torch.log(x.double()).float()
-
-
-def _exp(x):
-    return torch.exp(x.double()).float()
-
-
-def _pow(x, y):
-    return torch.pow(x.double(), y.double()).float()
 
 
 # ---------------------------------------------------------------------------
@@ -95,13 +78,14 @@ def _id_uniforms(key, ids, tag: int, m: int):
 def _zipf_from_u(u, n_pages, a):
     """Bounded-Zipf(a) rank sample via the continuous inverse CDF (ranks
     1..n; returns 0-based page ids).  The a ~ 1 singularity takes the log
-    form.  The f32 operations keep the JAX package's order."""
+    form.  The f32 operations keep the JAX package's order, and
+    ``u * (n ** s - 1) + 1`` is the one ``fmaf`` XLA contracts it to."""
     n = n_pages.to(F32)
     one_m = 1.0 - a
     near1 = torch.abs(one_m) < 1e-3
     safe = torch.where(near1, torch.ones_like(one_m), one_m)
-    k_pow = _pow(u * (_pow(n, safe) - 1.0) + 1.0, 1.0 / safe)
-    k_log = _exp(u * _log(n))
+    k_pow = pow_f32(fma_f32(u, pow_f32(n, safe) - 1.0, 1.0), 1.0 / safe)
+    k_log = exp_f32(u * log_f32(n))
     k = torch.where(near1, k_log, k_pow)
     return torch.minimum(torch.clamp_min(k.to(I32) - 1, 0), n_pages - 1)
 
@@ -110,7 +94,7 @@ def _burst_times(u, idx, p: WorkloadParams):
     """Arrival clock: one exponential gap (mean ``interarrival * burst``)
     at each burst boundary, zero within; f32 ticks."""
     burst = torch.clamp_min(p.burst, 1)
-    gap = -_log1p(-torch.clamp_max(u, 0.999999)) \
+    gap = -log1p_f32(-torch.clamp_max(u, 0.999999)) \
         * p.interarrival * burst.to(F32)
     gap = torch.where(torch.remainder(idx, burst) == 0, gap,
                       torch.zeros_like(gap))

@@ -7,12 +7,15 @@ every frame row (valid and filler), the final ``TelemetryState``,
 ``cumulative()`` and ``series()``, for the 6 mechanisms x 4 controllers of
 ``tests/test_obs.py`` at PERIOD 32 and the PERIOD 1 stress point for
 ``base`` and ``figcache_fast`` under ``fcfs`` and ``frfcfs+drain``; then
-the ports of ``tests/test_obs.py``'s contracts that need no orchestrator
-(golden invisibility, conservation, chunk invariance, guardrails,
-rendering, histogram mass, the time-sum bracket under ``LAT_SUM_CAP``,
-bucket scheme, percentile oracle, zero-request windows, all-no-op
-segments, the Chrome counter round trip) and the span log's
-byte-determinism and Chrome schema.
+the ports of ``tests/test_obs.py``'s contracts (golden invisibility,
+conservation, chunk invariance, guardrails, rendering, histogram mass, the
+time-sum bracket under ``LAT_SUM_CAP``, bucket scheme, percentile oracle,
+zero-request windows, all-no-op segments, the Chrome counter round trip),
+the span log's byte-determinism and Chrome schema, and the three contracts
+driven by the port's orchestrator (``repro_torch.launch.orchestrator`` on
+the CPU): the faulted run's span log byte-identical across runs with its
+manifest events, the killed run's open span and the resumed run's restore,
+and the Chrome export of a real span log.
 
 Tolerances: every integer leaf, frame row, histogram and count is compared
 exactly; the derived float rates (``hit_rate``, ``avg_lat_ns``, ...) are
@@ -684,6 +687,119 @@ def test_chrome_schema_open_span(tmp_path):
     assert all(e["ts"] == max(x["ts"] for x in evs) for e in synth)
     assert trace.chrome_trace(trace.read_jsonl(str(tmp_path / "s.jsonl"))) \
         == jtrace.chrome_trace(jtrace.read_jsonl(str(tmp_path / "s.jsonl")))
+
+
+# ------------------------------------------- orchestrator-driven contracts
+
+def _traced_faulted_run(run_dir):
+    """kill+resume, transient x3 (exp backoff), straggler re-issue: one
+    orchestrated sweep on the CPU, spans appended to one JSONL log."""
+    from repro_torch.launch import orchestrator as orch_mod
+    from repro_torch.runtime.faults import (FaultEvent, FaultPlan,
+                                            InjectedKill)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    plan = orch_mod.ci_grid(chunk_len=128)
+    fp = FaultPlan([
+        FaultEvent(kind="transient", shard=0, times=3),
+        FaultEvent(kind="kill", shard=1, segment=1, mode="raise"),
+        FaultEvent(kind="slow", shard=4, segment=0, factor=8.0),
+    ])
+    log = run_dir / "span.jsonl"
+    tracer = trace.Tracer(str(log), clock=fp.clock.now)
+    kw = dict(fault_plan=fp, backoff_s=0.05, max_retries=3, tracer=tracer,
+              devices=[CPU])
+    o = orch_mod.Orchestrator(plan, str(run_dir), **kw)
+    with pytest.raises(InjectedKill):
+        o.run()
+    o2 = orch_mod.Orchestrator(plan, str(run_dir), **kw)
+    assert o2.run() == {"done": len(plan.shards)}
+    tracer.close()
+    return o2, fp, log, plan
+
+
+def test_span_log_byte_identical_and_manifest_events(tmp_path):
+    o, fp, log, plan = _traced_faulted_run(tmp_path / "a")
+    _, _, log2, _ = _traced_faulted_run(tmp_path / "b")
+    assert log.read_bytes() == log2.read_bytes()
+    assert len(log.read_bytes()) > 0
+
+    # the exponential backoff ran on the logical clock, never wall time
+    assert fp.clock.slept[:3] == [0.05, 0.1, 0.2]
+
+    events = trace.read_jsonl(str(log))
+    names = {e["name"] for e in events}
+    assert {"run", "shard", "checkpoint.save", "checkpoint.restore",
+            "transient_retry", "straggler_reissue"} <= names
+    # logical timestamps are monotone in emission order
+    ts = [e["ts"] for e in events]
+    assert all(a <= b for a, b in zip(ts, ts[1:]))
+    # per-attempt shard spans carry worker + attempt + outcome
+    shard_b = [e for e in events if e["name"] == "shard" and e["ph"] == "B"]
+    assert all({"key", "worker", "attempt"} <= set(e["args"])
+               for e in shard_b)
+    retried = plan.shards[0].key
+    assert sum(e["args"].get("key") == retried for e in shard_b) == 4
+
+    # durable manifest diagnostics: the same attempts, without the tracer
+    rec = o.manifest["shards"][retried]["events"]
+    assert [r["kind"] for r in rec] == ["transient_retry"] * 3
+    assert [r["attempt"] for r in rec] == [1, 2, 3]
+    assert [r["backoff_s"] for r in rec] == [0.05, 0.1, 0.2]
+    slow = o.manifest["shards"][plan.shards[4].key]["events"]
+    assert any(r["kind"] == "straggler_reissue" and r["worker"] !=
+               r["new_worker"] for r in slow)
+
+
+def test_kill_leaves_open_span_resume_restores(tmp_path):
+    """The killed run's log ends inside an open span (the death site);
+    the resumed run records the checkpoint restore for the killed shard."""
+    from repro_torch.launch import orchestrator as orch_mod
+    from repro_torch.runtime.faults import (FaultEvent, FaultPlan,
+                                            InjectedKill)
+    plan = orch_mod.ci_grid(chunk_len=128)
+    fp = FaultPlan([FaultEvent(kind="kill", shard=1, segment=1,
+                               mode="raise")])
+    log = tmp_path / "span.jsonl"
+    tracer = trace.Tracer(str(log), clock=fp.clock.now)
+    kw = dict(fault_plan=fp, backoff_s=0.0, tracer=tracer, devices=[CPU])
+    o = orch_mod.Orchestrator(plan, str(tmp_path), **kw)
+    with pytest.raises(InjectedKill):
+        o.run()
+    depth = sum(1 if e["ph"] == "B" else -1 if e["ph"] == "E" else 0
+                for e in trace.read_jsonl(str(log)))
+    assert depth > 0                       # died inside >= 1 open span
+    o2 = orch_mod.Orchestrator(plan, str(tmp_path), **kw)
+    assert o2.run() == {"done": len(plan.shards)}
+    tracer.close()
+    restores = [e for e in trace.read_jsonl(str(log))
+                if e["name"] == "checkpoint.restore"]
+    assert any(e["args"]["shard"] == plan.shards[1].key for e in restores)
+
+
+def test_chrome_export_schema(tmp_path):
+    _, _, log, _ = _traced_faulted_run(tmp_path / "run")
+    dst = tmp_path / "span.chrome.json"
+    n = trace.chrome_from_jsonl(str(log), str(dst))
+    doc = json.loads(dst.read_text())
+    evs = doc["traceEvents"]
+    assert n == len(evs) and n > 0
+    assert doc["displayTimeUnit"] == "ms"
+    for e in evs:
+        assert {"name", "ph", "ts", "pid", "tid"} <= set(e)
+        assert e["ph"] in ("B", "E", "i")
+        if e["ph"] == "i":
+            assert e["s"] == "t"
+    # B/E strictly balanced: the exporter synthesizes closes for spans
+    # the process died inside, and flags them
+    depth = 0
+    for e in evs:
+        depth += 1 if e["ph"] == "B" else -1 if e["ph"] == "E" else 0
+        assert depth >= 0
+    assert depth == 0
+    # the killed run died inside run+shard spans: the exporter must have
+    # synthesized (and flagged) their closes
+    assert sum(bool(e.get("args", {}).get("synthetic_close"))
+               for e in evs if e["ph"] == "E") >= 1
 
 
 # ---------------------------------------------------------------- the card
