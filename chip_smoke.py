@@ -158,14 +158,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    ``compare`` returns 0; ``xla_math``'s log1p and the Zipf inversion's
    pow / exp / log over all 2**23 uniforms at the presets' knobs, the
    card's bits equal to the CPU's;
-15. summary: one ``{"kernels": [...]}`` JSON line (device times from
+15. sanitizer and flight recorder: the launch contracts
+   (``analysis.contracts``) on the card, each contract's sim_scan
+   launches (counted from 0 around it) equal to its count in
+   ``dram.REPLAYS`` and within budget, ``sweep.warm-cache`` opening no library, with
+   launches, builds and wall per contract; the lint and the aten-graph
+   audit (``analysis.run_all(with_contracts=False)``) with zero findings;
+   64 eager steps of the fig-8 figcache_fast group (32 lanes) under
+   ``torch.cuda.set_sync_debug_mode("error")`` with no error, their
+   counters equal to sim_scan's over the same requests; the ``dense`` body
+   (eager on the card) equal to sim_scan's fused replay on every counter
+   for the 18 mechanism x policy cells of tests/test_hotloop.py on a real
+   512-request, 4-channel fig-8 trace; then ``python -m repro_torch.obs``
+   in-process at full size (16384 requests, chunk 256, period 64, SLO 100
+   ns), its chunked-vs-monolithic window series bitwise equal (a hard
+   check), the telemetry tax with every round and the 1.25x tripwire's
+   verdict (reported, not a failure), p50 / p99 / p999 and the over-SLO
+   rate per capacity point, the phase_mix hit-rate range and the contract
+   profile (cold / warm walls, builds, dispatches, sim_scan launches);
+16. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
    launches, 0, a field apart; sim_scan's launches on each simulator path
-   of phases 4 and 9-14, counted from 0 around it, in ``path_launches``,
+   of phases 4 and 9-15, counted from 0 around it, in ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
    ``tel_tax``),
    the nvidia-smi line, and
@@ -193,6 +211,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import analysis  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
 from repro_torch import obs  # noqa: E402
@@ -224,6 +243,8 @@ from repro_torch.kernels.fts_lookup import fts_lookup as fts_kernel  # noqa: E40
 from repro_torch.kernels.fts_lookup.ref import fts_lookup_ref  # noqa: E402
 from repro_torch.kernels.sim_scan import sim_scan as scan_kernel  # noqa: E402
 from repro_torch.core.workload import xla_math  # noqa: E402
+from repro_torch.analysis import contracts  # noqa: E402
+from repro_torch.obs import __main__ as obs_cli  # noqa: E402
 from repro_torch.launch import orchestrator as orch_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.runtime.faults import (FaultEvent, FaultPlan,  # noqa: E402
@@ -354,6 +375,9 @@ FIG17_CORES, FIG17_SEED, GEN_EAGER_PREFIX = 8, 2, 1024
 # uninterrupted and killed at (shard, segment) then resumed; the CLI's
 # ci_grid killed by a real SIGKILL at ORCH_CLI_KILL
 ORCH_CHUNK, ORCH_KILL, ORCH_CLI_KILL = 1024, (7, 3), "1:1"
+# the sanitizer phase: the fig-8 figcache_fast group's eager steps run
+# under the sync-debug mode, and the dense body's real trace
+SYNC_STEPS, DENSE_REQS = 64, 512
 # the transcendentals' knob pairs held card against CPU over every uniform:
 # zipf_a 1.1 / 1.2 x n_pages 1024 to 8192 (the presets' values)
 XLA_KNOBS = [(n, a) for a in (1.1, 1.2) for n in (1024, 2048, 4096, 8192)]
@@ -2793,6 +2817,145 @@ def phase_lm_padded(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sanitizer and flight recorder
+
+def stacked_fig8(per_channel):
+    """The fig-8 workloads' traces stacked on the channel axis, as
+    ``simulator.sweep_traces`` lays them out: (8 x 4, per_channel)."""
+    all_wl = traces.eight_core_workloads()
+    trs = [traces.build_trace(all_wl[w][2], N_CHANNELS, per_channel, 2)
+           for w in FIG8_WORKLOADS]
+    return dram.Trace(*[np.concatenate(xs) for xs in zip(*trs)])
+
+
+def counters_equal(a, b, what):
+    for f, x, y in zip(dram.Counters._fields, a, b):
+        check(torch.equal(x.cpu(), y.cpu()), f"{what}: {f} differs")
+
+
+def phase_sanitizer(dev):
+    """Launch contracts, lint + graph audit, the step's host syncs, the
+    dense body and ``python -m repro_torch.obs`` on the card; returns the
+    phase's sim_scan launches and the report's tax."""
+    t_phase = time.perf_counter()
+    total = 0
+    # (a) contracts: sim_scan launches counted from 0 around each grid
+    for name, c in contracts.REGISTRY.items():
+        got = {}
+        scan_kernel.COUNTER.launches = 0
+        r0 = dram.replay_count()
+        t0 = time.perf_counter()
+        found = contracts.check_contract(name, dev, got)
+        wall = time.perf_counter() - t0
+        launches = scan_kernel.COUNTER.launches
+        replays = dram.replay_count() - r0
+        total += launches
+        check(not found, f"contract {name}: "
+              f"{[f.render() for f in found]}")
+        obs = got[name]
+        check(launches == replays, f"contract {name}: sim_scan launched "
+              f"{launches} times, dram.replay_count counted {replays}")
+        log(f"[sanitizer] contract {name}: launches {obs.launches} (budget "
+            f"{c.max_launches}), sim_scan {launches}, builds {obs.builds} "
+            f"(budget {c.max_builds}), wall {wall:.4f} s")
+    # (b) lint + graph audit
+    t0 = time.perf_counter()
+    rep = analysis.run_all(repo_root=str(ROOT), with_contracts=False)
+    check(not rep.findings, "sanitizer findings:\n" + rep.render_text())
+    log(f"[sanitizer] lint + graph audit: {len(rep.scanned)} files and "
+        f"entries, 0 findings ({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the eager step reads nothing back: sync-debug mode "error"
+    stacked = stacked_fig8(PER_CHANNEL)
+    cfg = timing.paper_config("figcache_fast")
+    head = dram.Trace(*[x[:, :SYNC_STEPS] for x in stacked])
+    lanes = int(head.t_issue.shape[0])
+    params = cfg.params(device=dev)
+    tr, lp, st = dram._prepare(head, params, dram.sim_init(
+        cfg.static, channels=lanes, device=dev), dev)
+    step = dram.make_step(cfg.static)
+    carry = (st.bank, st.cnt, None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(SYNC_STEPS):
+            carry = step(lp, carry, dram.Trace(*(f[t] for f in tr)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    scan_kernel.COUNTER.launches = 0
+    ref = dram.resume(head, cfg.static, params, dram.sim_init(
+        cfg.static, channels=lanes, device=dev), device=dev)
+    total += scan_kernel.COUNTER.launches
+    counters_equal(ref.cnt, carry[1], "sync-debug eager steps vs sim_scan")
+    log(f"[sanitizer] {SYNC_STEPS} eager steps of the fig-8 figcache_fast "
+        f"group ({lanes} lanes) under sync-debug mode 'error': no "
+        f"synchronising call; counters == sim_scan's")
+
+    # (d) the dense body (eager) == sim_scan's fused replay
+    t0 = time.perf_counter()
+    real = dram.Trace(*[x[:N_CHANNELS, :DENSE_REQS] for x in stacked])
+    check(bool((real.t_issue < dram.NOOP_ISSUE).all()),
+          "the dense check's trace holds no-ops")
+    cells = [(m, "row_benefit") for m in ("base", "lldram")] + [
+        (m, p) for m in simulator.PAPER_MECHS
+        if timing.paper_config(m).has_cache
+        for p in ("row_benefit", "segment_benefit", "lru", "random")]
+    scan_kernel.COUNTER.launches = 0
+    for mech, policy in cells:
+        c = timing.paper_config(mech, policy=policy)
+        pr = c.params(device=dev)
+        fused = dram.simulate(real, c.static, pr, device=dev)
+        dense = dram.simulate(real, c.static, pr, variant="dense",
+                              device=dev)
+        counters_equal(fused, dense, f"dense vs sim_scan {mech}/{policy}")
+    dense_launches = scan_kernel.COUNTER.launches
+    total += dense_launches
+    check(dense_launches == len(cells), f"dense check: sim_scan launched "
+          f"{dense_launches} times for {len(cells)} fused replays")
+    log(f"[sanitizer] dense body (eager on the card) == sim_scan on every "
+        f"counter: {len(cells)} mechanism x policy cells, {N_CHANNELS} x "
+        f"{DENSE_REQS} requests ({time.perf_counter() - t0:.1f} s)")
+
+    # (e) python -m repro_torch.obs at full size
+    scan_kernel.COUNTER.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rc = obs_cli.main(["--json", f"{d}/BENCH_obs.json", "--outdir", d,
+                           "--device", "cuda"])
+        rec = json.loads(pathlib.Path(f"{d}/BENCH_obs.json").read_text())
+    obs_s = time.perf_counter() - t0
+    obs_launches = scan_kernel.COUNTER.launches
+    total += obs_launches
+    check(rec["windows_bitwise_chunked_vs_monolithic"],
+          "obs: chunked window series differ from monolithic")
+    tax = rec["telemetry_tax"]
+    tripped = tax > obs_cli.TAX_TRIPWIRE
+    check(rc == (1 if tripped else 0), f"obs CLI returned {rc}")
+    log(f"[sanitizer] obs report ({obs_s:.1f} s, {obs_launches} sim_scan "
+        f"launches) on {rec['device']}: tax {tax}x (rounds "
+        f"{rec['telemetry_tax_rounds']}; off {rec['telemetry_off_s']} s, on "
+        f"{rec['telemetry_on_s']} s) -> tripwire {obs_cli.TAX_TRIPWIRE}x "
+        f"{'TRIPPED' if tripped else 'held'}; chunked == monolithic bitwise")
+    for pt in rec["tail_latency"]["per_point"]:
+        log(f"[sanitizer]   cache_rows={pt['cache_rows']:<3d} p50 "
+            f"{pt['p50']} p99 {pt['p99']} {pt['p99_bracket_ns']} p999 "
+            f"{pt['p999']} {pt['p999_bracket_ns']} ns, over-SLO "
+            f"{pt['slo_rate']}")
+    pm = rec["phase_mix"]
+    log(f"[sanitizer]   phase_mix: {pm['n_windows']} windows, hit rate "
+        f"{pm['min_hit_rate']}..{pm['max_hit_rate']}")
+    for name, r in rec["profile"].items():
+        log(f"[sanitizer]   profile {name}: cold {r['cold_s']} s warm "
+            f"{r['warm_s']} s, builds {r['builds_cold']}/{r['builds_warm']}"
+            f" ({r['build_s']} s), launches {r['launches_warm']}, sim_scan "
+            f"{r['sim_scan_launches_warm']}, dispatches "
+            f"{r['dispatches_warm']}")
+    log(f"[sanitizer] phase 15: {total} sim_scan launches, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total, "tax": tax, "tripped": tripped}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2829,6 +2992,7 @@ def main():
     telem = phase_telemetry(dev, long_run.pop("trace"))
     gen = phase_workloads(dev)
     orch = phase_orchestration(dev)
+    sanitizer = phase_sanitizer(dev)
     figkv = phase_figkv(dev)
     phase_profile(dev)
     flash = phase_flash(dev)
@@ -2874,7 +3038,8 @@ def main():
                           "controller_grid": grid16["launches"],
                           "telemetry": telem["launches"],
                           "workloads": gen["launches"],
-                          "orchestration": orch["launches"]}})
+                          "orchestration": orch["launches"],
+                          "sanitizer": sanitizer["launches"]}})
     for path, n in rows[-1]["path_launches"].items():
         check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step

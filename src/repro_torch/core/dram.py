@@ -43,14 +43,25 @@ cumulative latency-histogram planes across segments; ``resume_tel`` /
 routes run the same arithmetic: the eager loop's ``_telemetry_step`` and
 the ``sim_scan`` kernel's telemetry instantiation.
 
-Not ported yet (ROADMAP.md, Queue 1): the ``dense`` reference body, which
-raises.
+``variant="dense"`` selects the pre-aggregate reference body
+(``_make_step_dense``, DESIGN.md §9): whole-bank FTS gathers per lane,
+inserts through ``fts.insert(..., recompute=True)`` and whole-row write
+backs.  It is the oracle the fused body is pinned against, bitwise on real
+requests; like the JAX package's it does NOT understand no-op padding and
+refuses telemetry.  It has no kernel: ``_advance`` runs it through the
+eager loop on every device, as the JAX package runs it as a plain scan.
+
+Every replay is counted in ``REPLAYS`` (the counterpart of the JAX
+package's ``JIT_TRACE_LOG``), which keeps the tags of the last few:
+``sim_scan`` for a kernel launch, ``eager`` for the loop.
+``analysis/contracts.py`` budgets them.
 
 Timestamps are int32 ticks (1/8 ns).  Latency accumulators are int32 ns.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import collections
+from typing import Deque, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,6 +106,38 @@ LAT_SUM_CAP = (1 << 30) - 1
 HIST_BUCKETS = 28
 
 _TRACE_DTYPES = (I32, I32, I32, I32, torch.bool, I32)
+
+VARIANTS = ("fused", "dense")
+
+class _Replays:
+    """Replays this process made (``count``) and the tags of the last
+    ``maxlen``, each "<route>/<variant>/<mechanism>/<policy>/<T>x<lanes>"
+    with route ``sim_scan`` (one kernel launch) or ``eager`` (the step
+    loop).  JAX's log grows only when something compiles; this runs on
+    every replay, so it keeps a count and a bounded tail, not a list."""
+
+    def __init__(self, maxlen: int = 64):
+        self.count = 0
+        self.last: Deque[str] = collections.deque(maxlen=maxlen)
+
+    def log(self, tag: str):
+        self.count += 1
+        self.last.append(tag)
+
+    def mark(self):
+        return self.count, tuple(self.last)
+
+    def restore(self, mark):
+        self.count = mark[0]
+        self.last.clear()
+        self.last.extend(mark[1])
+
+
+REPLAYS = _Replays()
+
+
+def replay_count() -> int:
+    return REPLAYS.count
 
 
 def host_array(x) -> np.ndarray:
@@ -287,11 +330,12 @@ def _tel_close(sc: TelScan):
 
 
 def hist_bucket(lat_ns: torch.Tensor) -> torch.Tensor:
-    """The §16 bucket of an int32 latency: its bit length (``32 - clz``,
-    read off the float64 exponent, exact for every int32), clipped into
-    the last bucket."""
-    bits = torch.frexp(lat_ns.clamp(min=0).double()).exponent
-    return bits.clamp(max=HIST_BUCKETS - 1).to(I32)
+    """The §16 bucket of an int32 latency: its bit length (``32 - clz``)
+    clipped into the last bucket, counted in int32 as the number of
+    shifts ``k < HIST_BUCKETS - 1`` that leave a nonzero value."""
+    ks = torch.arange(HIST_BUCKETS - 1, dtype=I32, device=lat_ns.device)
+    x = lat_ns.clamp(min=0)[..., None]
+    return (torch.bitwise_right_shift(x, ks) != 0).sum(-1, dtype=I32)
 
 
 def _telemetry_step(tel: TelScan, period: int, *, lanes, real, bank, core,
@@ -609,10 +653,27 @@ def make_decision_fn(static: StaticConfig, geom: DRAMGeometry = GEOM):
     return decide
 
 
-def _check_ported(static: StaticConfig, variant: str):
-    if variant != "fused":
-        raise ValueError(f"scan variant {variant!r} is not ported to "
-                         "repro_torch; only 'fused' is (see ROADMAP.md)")
+def _check_variant(variant: str):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown scan variant {variant!r}; expected one "
+                         f"of {VARIANTS}")
+
+
+def _consts_cache(static: StaticConfig):
+    """``consts(req) -> _Consts`` for the device and lane count of ``req``,
+    made once per (device, lanes)."""
+    max_slots = static.max_slots if static.has_cache else 1
+    max_segs = static.max_segs_per_row if static.has_cache else 1
+    cache: Dict[tuple, _Consts] = {}
+
+    def consts(req: Trace) -> _Consts:
+        key = (req.bank.device, req.bank.shape[0])
+        k = cache.get(key)
+        if k is None:
+            k = cache[key] = _Consts(key[1], key[0], max_slots, max_segs)
+        return k
+
+    return consts
 
 
 def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
@@ -624,25 +685,18 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
     ``Trace`` of ``(N,)`` rows.  The bank state is updated in place; the
     counters are rebuilt (their per-core planes updated in place); with
     ``static.telemetry`` the windows advance after the counters, as in the
-    JAX package's step.
-
-    Only the ``fused`` body is ported; ``dense`` raises ``ValueError``
-    (ROADMAP.md, Queue 1)."""
-    _check_ported(static, variant)
+    JAX package's step.  ``variant="dense"`` returns the reference body
+    (``_make_step_dense``)."""
+    _check_variant(variant)
+    if variant == "dense":
+        return _make_step_dense(static, geom)
     decide = make_decision_fn(static, geom)
-    max_slots = static.max_slots if static.has_cache else 1
-    max_segs = static.max_segs_per_row if static.has_cache else 1
-    consts: Dict[tuple, _Consts] = {}
+    consts = _consts_cache(static)
 
     def step(params: MechParams, carry, req: Trace):
         state, cnt, tel = carry
         p = params
-        n = req.bank.shape[0]
-        key = (req.bank.device, n)
-        k = consts.get(key)
-        if k is None:
-            k = consts[key] = _Consts(n, req.bank.device, max_slots,
-                                      max_segs)
+        k = consts(req)
         lanes = k.lanes
         b = req.bank.long()
         core = req.core.long()
@@ -709,6 +763,143 @@ def make_step(static: StaticConfig, geom: DRAMGeometry = GEOM,
                 bus_wait=done - (t0 + dec.pre_act + p.cas + p.bl),
                 mshr_wait=t_ready - req.t_issue, slo_ns=p.slo_ns,
                 step_id=step_id)
+        return state, cnt, tel
+
+    return step
+
+
+def _make_step_dense(static: StaticConfig, geom: DRAMGeometry = GEOM):
+    """The pre-aggregate step (DESIGN.md §9 "dense"), the port of the JAX
+    package's ``_make_step_dense``: each lane gathers its whole bank's FTS
+    row, looks up, advances the miss tracker, inserts with
+    ``fts.insert(..., recompute=True)`` (full free-slot argmin and
+    segment-summed row benefits), touches, selects among the three stores
+    and writes the bank row back whole.  Bitwise-identical to the fused
+    body on real requests; it does NOT understand no-op padding (a padding
+    request is simulated like any other).  Kept as the equivalence
+    reference.  Raises ``ValueError`` with telemetry, which it predates."""
+    if static.telemetry:
+        raise ValueError(
+            "telemetry windows require the fused scan body; the dense "
+            "reference predates them (set telemetry=0 or variant='fused')")
+    cache_base = geom.n_rows                      # id-space for cache rows
+    reserved_sub = geom.n_subarrays - 1           # figcache_slow region
+    lisa = static.mechanism == "lisa_villa"
+    slow_cache = static.mechanism == "figcache_slow"
+    lldram = static.mechanism == "lldram"
+    consts = _consts_cache(static)
+
+    def step(params: MechParams, carry, req: Trace):
+        state, cnt, tel = carry
+        p = params
+        spr = p.segs_per_row
+        k = consts(req)
+        lanes = k.lanes
+        b = req.bank.long()
+        core = req.core.long()
+        fts_b = fts_lib.FTS(*[a[lanes, b] for a in state.fts])
+        # closed loop: a core may not have more than N_MSHR requests in
+        # flight — it stalls until the request N_MSHR-ago completed
+        mshr_slot = state.mshr_idx[lanes, core]
+        ms = mshr_slot.long()
+        mshr_free = state.mshr_ring[lanes, core, ms]
+        t_ready = torch.maximum(req.t_issue, mshr_free)
+        t0 = torch.maximum(t_ready, state.busy[lanes, b])
+        open_b = state.open_row[lanes, b]
+        step_id = cnt.reads + cnt.writes
+
+        # ---- cache lookup -------------------------------------------------
+        if static.has_cache:
+            seg = req.row * spr + _floordiv(req.col, p.seg_blocks)
+            if slow_cache:   # never cache the subarray hosting reserved rows
+                cacheable = _floordiv(req.row, geom.rows_per_subarray) \
+                    != reserved_sub
+            else:
+                cacheable = ~k.false
+            hit, slot = fts_lib.lookup(fts_b, seg)
+            hit = hit & cacheable
+            target_row = torch.where(hit, cache_base + _floordiv(slot, spr),
+                                     req.row)
+        else:
+            hit = k.false
+            target_row = req.row
+
+        # ---- service latency ---------------------------------------------
+        served_fast = (hit & static.fast_cache) | lldram
+        rcd = torch.where(served_fast, p.rcd_fast, p.rcd)
+        rp = torch.where(served_fast, p.rp_fast, p.rp)
+        row_hit = open_b == target_row
+        closed = open_b < 0
+        pre_act = torch.where(row_hit, 0, rcd + torch.where(closed, 0, rp))
+        done = torch.maximum(t0 + pre_act + p.cas, state.bus_free) + p.bl
+        serv_end = t0 + pre_act + p.ccd
+
+        # ---- miss path: insert-any-miss (+ optional threshold) ------------
+        if static.has_cache:
+            # the tracker advances on actual (cacheable) misses only; the
+            # hit path is built from the pre-tracker ``fts_b``
+            want, fts_miss = fts_lib.should_insert(fts_b, seg,
+                                                   p.insert_threshold)
+            fts_miss = fts_lib.select(cacheable, fts_miss, fts_b)
+            do_ins = ~hit & cacheable & want
+            ins = fts_lib.insert(fts_miss, seg, req.is_write, step_id,
+                                 policy=static.policy, segs_per_row=spr,
+                                 n_slots=p.n_slots, recompute=True)
+            if static.free_reloc:
+                reloc_cost = k.zeros
+            elif lisa:
+                # whole-row relocation, distance-dependent (src row is open)
+                reloc_cost = _lisa_hops(req.row, geom) * p.lisa_hop \
+                    + p.rcd_fast
+                wb_hops = _lisa_hops(ins.evicted_tag, geom)
+                reloc_cost = reloc_cost + torch.where(
+                    ins.evicted_dirty, wb_hops * p.lisa_hop + p.rcd, 0)
+            else:
+                # FIGARO: seg_blocks RELOCs through the GRB, plus the dirty
+                # victim's writeback with its home row opened
+                reloc_cost = p.seg_blocks * p.reloc + torch.where(
+                    ins.evicted_dirty, p.seg_blocks * p.reloc + p.rcd, 0)
+            reloc_cost = torch.where(do_ins, reloc_cost, 0)
+            # after insertion the destination cache row is left open
+            new_open = torch.where(
+                do_ins, cache_base + _floordiv(ins.slot, spr), target_row)
+            touched = fts_lib.touch(fts_b, slot, req.is_write, step_id,
+                                    p.benefit_max, spr)
+            fts_new = fts_lib.select(hit, touched, fts_lib.select(
+                do_ins, ins.fts, fts_miss))
+            for full, one in zip(state.fts, fts_new):
+                full[lanes, b] = one
+            moved = torch.where(do_ins, p.seg_blocks, 0)
+            wb = torch.where(do_ins & ins.evicted_dirty, p.seg_blocks, 0)
+            n_ins = do_ins.to(I32)
+        else:
+            reloc_cost = moved = wb = n_ins = k.zeros
+            new_open = target_row
+
+        state.open_row[lanes, b] = new_open
+        state.busy[lanes, b] = serv_end + reloc_cost
+        state.mshr_ring[lanes, core, ms] = done
+        state.mshr_idx[lanes, core] = torch.remainder(mshr_slot + 1, N_MSHR)
+        state = state._replace(bus_free=done)
+
+        # ---- counters ------------------------------------------------------
+        act = (~row_hit).to(I32)
+        cnt.lat_sum_ns[lanes, core] += _floordiv(done - t_ready, 8)
+        cnt.lat_sum_ns.clamp_(max=LAT_SUM_CAP)
+        cnt.req_cnt[lanes, core] += 1
+        cnt = cnt._replace(
+            acts_slow=cnt.acts_slow + act * ~served_fast,
+            acts_fast=cnt.acts_fast + act * served_fast,
+            reads=cnt.reads + (~req.is_write).to(I32),
+            writes=cnt.writes + req.is_write.to(I32),
+            reloc_blocks=cnt.reloc_blocks + moved,
+            wb_blocks=cnt.wb_blocks + wb,
+            row_hits=cnt.row_hits + row_hit.to(I32),
+            cache_hits=cnt.cache_hits + hit.to(I32),
+            insertions=cnt.insertions + n_ins,
+            t_end=torch.maximum(cnt.t_end, torch.maximum(
+                done, serv_end + reloc_cost)),
+        )
         return state, cnt, tel
 
     return step
@@ -816,13 +1007,18 @@ def _advance(trace: Trace, static: StaticConfig, params: MechParams,
              with_frames: bool = False):
     """Clone ``state`` to ``device`` and replay ``trace`` over it: one
     ``sim_scan`` launch on a CUDA device (its telemetry instantiation when
-    ``static.telemetry`` is set), the eager loop on the CPU.  Returns as
-    ``_advance_eager`` does."""
+    ``static.telemetry`` is set), the eager loop on the CPU and for the
+    ``dense`` body on every device.  Counts the replay in ``REPLAYS``;
+    returns as ``_advance_eager`` does."""
+    _check_variant(variant)
     dev = resolve_device(device)
-    if dev.type != "cuda":
+    route = "sim_scan" if dev.type == "cuda" and variant == "fused" \
+        else "eager"
+    REPLAYS.log(f"{route}/{variant}/{static.mechanism}/{static.policy}/"
+                f"{np.shape(trace.t_issue)[-1]}x{state.cnt.reads.shape[0]}")
+    if route == "eager":
         return _advance_eager(trace, static, params, state, variant, dev,
                               with_frames)
-    _check_ported(static, variant)
     tr, lp, st = _prepare(trace, params, state, dev)
     tel = _open(static, st, tr.t_issue.shape[0])
     sim_scan(tr, lp, st.bank, st.cnt, static, GEOM, tel)

@@ -7,7 +7,9 @@ the flags keys the file, so an edited source or header rebuilds), with
 nvcc's output (ptxas's report) beside it in ``lib<name>-<hash>.log``;
 ``build_all`` starts one ``nvcc`` per source, all at once.
 ``build_host`` compiles a ``csrc/<name>.cpp`` with the host C++ compiler
-the same way (the CPU tests' build of the simulator step).
+the same way (the CPU tests' build of the simulator step).  ``load`` and
+``load_host`` are the only places that open a library: each opens it once
+per process and keeps it in ``_LOADED``.
 Nothing here runs at import time: the CPU tests import every module on
 machines without ``nvcc``.
 """
@@ -124,13 +126,27 @@ def build_all(names: Sequence[str]) -> List[Path]:
     return paths
 
 
+def _open(key: str, build) -> ctypes.CDLL:
+    lib = _LOADED.get(key)
+    if lib is None:
+        lib = _LOADED[key] = ctypes.CDLL(str(build()))
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[0]))
-        _LOADED[name] = lib
-    return lib
+    return _open(name, lambda: build_all([name])[0])
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cpp``, building it if
+    needed."""
+    return _open(f"host/{name}", lambda: build_host(name))
+
+
+def load_count() -> int:
+    """Libraries this process has opened."""
+    return len(_LOADED)
 
 
 def ptxas_report(name: str, entry: str) -> Dict[str, int]:

@@ -182,7 +182,7 @@ def host_tx(sel, step, n_live, fts, pool_k, pool_v, fast_k, fast_v, fig):
         raise ValueError(f"host_tx needs CPU tensors; got {dev}")
     ptrs, dims, out = pack(sel, step, n_live, fts, pool_k, pool_v, fast_k,
                            fast_v, fig, dev)
-    fn = ctypes.CDLL(str(host_library())).figkv_tx_host
+    fn = _build.load_host(HOST).figkv_tx_host
     fn.argtypes = [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     if fn(ctypes.cast(ptrs, ctypes.c_void_p),

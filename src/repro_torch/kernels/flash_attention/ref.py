@@ -35,8 +35,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hi = q1 if causal else s
         sc = torch.einsum("bgrqd,bgkd->bgrqk", qf[:, :, :, q0:q1],
                           kf[:, :, lo:hi]) * scale
-        qp = torch.arange(q0, q1, device=q.device)[:, None]
-        kp = torch.arange(lo, hi, device=q.device)[None, :]
+        qp = torch.arange(q0, q1, dtype=torch.int32, device=q.device)[:, None]
+        kp = torch.arange(lo, hi, dtype=torch.int32, device=q.device)[None]
         mask = torch.ones((q1 - q0, hi - lo), dtype=torch.bool,
                           device=q.device)
         if causal:

@@ -197,7 +197,7 @@ def host_replay(trace, params, bank, cnt, static, geom, tel=None) -> None:
     if dev.type != "cpu":
         raise ValueError(f"host_replay needs CPU tensors; got {dev}")
     ptrs, dims = pack(trace, params, bank, cnt, static, geom, dev, tel)
-    fn = ctypes.CDLL(str(host_library())).sim_replay_host
+    fn = _build.load_host(HOST).sim_replay_host
     fn.argtypes = [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     if fn(ctypes.cast(ptrs, ctypes.c_void_p),

@@ -12,9 +12,14 @@
    trace-event exporter (Perfetto / chrome://tracing), and the telemetry
    series as counter tracks.
 
-Not ported yet (ROADMAP.md, Queue 1): ``obs.profile`` (dispatch counts of
-the registered entry points) and ``python -m repro.obs`` (the telemetry
-tax on the capacity grid).
+ * ``obs.profile`` — cold-vs-warm walls, kernel builds and per-entry-point
+   dispatch counts, with ``analysis.contracts.REGISTRY`` as the source of
+   truth for what the entry points are.
+
+``python -m repro_torch.obs`` measures the telemetry tax on the fig12
+capacity grid, pins chunked-vs-monolithic window series bitwise, reports
+the tail percentiles, renders the ``phase_mix`` re-warming series and
+writes ``BENCH_obs.json`` (``--device``, default the CUDA device).
 """
 from repro_torch.obs.telemetry import WindowCollector, window_table
 from repro_torch.obs.trace import (Tracer, chrome_trace, chrome_from_jsonl,

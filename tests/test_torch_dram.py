@@ -194,14 +194,54 @@ def test_state_carried_from_jax_into_port(mech, policy):
 
 
 def test_unported_paths_raise():
-    """Only the dense body still raises.  A telemetry config, unported
-    before, now runs; its counters equal the JAX package's and the
-    telemetry-off run's."""
+    """Every body is ported: a telemetry config runs (its counters equal
+    the JAX package's and the telemetry-off run's) and so does the dense
+    body.  What still raises is what the JAX package refuses too: the
+    dense body with telemetry, and an unknown variant."""
     jcfg, cfg = _cfgs("figcache_fast", telemetry=8)
     trace = pd.Trace(**_pressure())
     got = pd.run_channel(trace, cfg, device=CPU)
     _assert_equal(jd.run_channel(_jax_trace(_pressure()), jcfg), got, "jax")
     _assert_equal(pd.run_channel(trace, _cfgs("figcache_fast")[1],
                                  device=CPU), got, "telemetry off")
-    with pytest.raises(ValueError, match="ported"):
-        pd.make_step(pt.paper_config("base").static, variant="dense")
+    assert callable(pd.make_step(pt.paper_config("base").static,
+                                 variant="dense"))
+    with pytest.raises(ValueError, match="dense"):
+        pd.make_step(cfg.static, variant="dense")
+    with pytest.raises(ValueError, match="variant"):
+        pd.make_step(pt.paper_config("base").static, variant="wave")
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_run(mech, policy):
+    _, cfg = _cfgs(mech, policy=policy)
+    return pd.simulate(pd.Trace(**_pressure()), cfg.static,
+                       cfg.params(device=CPU), variant="dense", device=CPU)
+
+
+@pytest.mark.parametrize("mech,policy", _matrix())
+def test_dense_equals_fused_and_jax_dense(mech, policy):
+    """tests/test_hotloop.py:174's bar in the port: the dense body's
+    counters equal the fused body's and the JAX package's dense body's
+    (``dram._simulate_jit(..., variant="dense")``), bit for bit."""
+    jcfg, _ = _cfgs(mech, policy=policy)
+    ref = jd._simulate_jit(_jax_trace(_pressure()), jcfg.static,
+                           jcfg.params(), variant="dense")
+    got = _dense_run(mech, policy)
+    _assert_equal(ref, got, (mech, policy, "jax dense"))
+    _assert_equal(_port_run(mech, policy), got, (mech, policy, "fused"))
+
+
+def test_dense_logs_eager_replays():
+    """Each replay is counted in ``REPLAYS`` with its tag; the dense body
+    is always an eager replay, as is every CPU replay."""
+    _, cfg = _cfgs("figcache_fast")
+    tr = pd.Trace(**{k: v[:16] for k, v in _pressure().items()})
+    n0 = pd.replay_count()
+    pd.simulate(tr, cfg.static, cfg.params(device=CPU), variant="dense",
+                device=CPU)
+    pd.run_channel(tr, cfg, device=CPU)
+    assert pd.replay_count() - n0 == 2
+    assert list(pd.REPLAYS.last)[-2:] == [
+        "eager/dense/figcache_fast/row_benefit/16x1",
+        "eager/fused/figcache_fast/row_benefit/16x1"]

@@ -845,3 +845,144 @@ def test_cuda_telemetry_stream_matches_cpu(cuda_device, period):
         a, b = cols[0].series((p,)), cols[1].series((p,))
         for k in a:
             assert np.array_equal(a[k], b[k], equal_nan=True), (p, k)
+
+
+# ---------------------------------------------------------------------------
+# obs.profile and ``python -m repro_torch.obs`` (the launch contracts of the
+# telemetry paths; the report's sections against ``python -m repro.obs``)
+
+def test_compile_contract_registered():
+    """The telemetry sweep owns a declared launch budget: one replay per
+    segment, 4 for the 256-request trace in chunks of 64."""
+    from repro_torch.analysis import contracts
+    assert "obs.telemetry-sweep" in contracts.REGISTRY
+    got = {}
+    assert contracts.check_contract("obs.telemetry-sweep", CPU, got) == []
+    assert got["obs.telemetry-sweep"] == (4, 0)
+
+
+def test_tail_latency_contract_registered():
+    """The §16 tail-latency pipeline owns a declared launch budget: the
+    SLO-threshold grid replays once per segment, percentiles on the
+    host."""
+    from repro_torch.analysis import contracts
+    assert "obs.tail-latency" in contracts.REGISTRY
+    got = {}
+    assert contracts.check_contract("obs.tail-latency", CPU, got) == []
+    assert got["obs.tail-latency"] == (4, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _obs_sections():
+    """Both packages' report sections at a tiny size: 256 requests, chunk
+    64, period 32, SLO 100 ns, 1 rep, 1 round."""
+    from repro.obs import __main__ as jobs
+    from repro_torch.obs import __main__ as pobs
+    ptax, pmono, pcfgs = pobs.measure_tax(256, 64, 32, 1, rounds=1,
+                                          slo_ns=100, device=CPU)
+    jtax, jmono, jcfgs = jobs.measure_tax(256, 64, 32, 1, rounds=1,
+                                          slo_ns=100)
+    pm = pobs.phase_mix_series(256, 32, 64, 64, device=CPU)
+    jm = jobs.phase_mix_series(256, 32, 64, 64)
+    return (ptax, pmono, pcfgs, pm), (jtax, jmono, jcfgs, jm)
+
+
+def test_obs_tax_section_matches_jax():
+    (ptax, pmono, pcfgs, _), (jtax, jmono, jcfgs, _) = _obs_sections()
+    assert list(ptax) == list(jtax)
+    assert ptax["windows_bitwise_chunked_vs_monolithic"] is True
+    assert jtax["windows_bitwise_chunked_vs_monolithic"] is True
+    assert [c.cache_rows for c in pcfgs] == [c.cache_rows for c in jcfgs]
+    for p in range(len(pcfgs)):
+        a, b = pmono.series(index=(p,)), jmono.series(index=(p,))
+        assert list(a) == list(b)
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), (p, k)
+        ca, cb = pmono.cumulative(index=(p,)), jmono.cumulative(index=(p,))
+        for k in cb:
+            assert np.array_equal(ca[k], cb[k]), (p, k)
+
+
+def test_obs_tail_section_matches_jax(tmp_path):
+    from repro.obs import __main__ as jobs
+    from repro_torch.obs import __main__ as pobs
+    (_, pmono, pcfgs, _), (_, jmono, jcfgs, _) = _obs_sections()
+    (tmp_path / "p").mkdir(), (tmp_path / "j").mkdir()
+    pt = pobs.tail_latency_section(pmono, pcfgs, 100, str(tmp_path / "p"))
+    jt = jobs.tail_latency_section(jmono, jcfgs, 100, str(tmp_path / "j"))
+    assert (tmp_path / "p" / "obs_latency_cdf.csv").read_text() == \
+        (tmp_path / "j" / "obs_latency_cdf.csv").read_text()
+    pt.pop("cdf_csv"), jt.pop("cdf_csv")
+    assert pt == jt and len(pt["per_point"]) == 6
+
+
+def test_obs_phase_mix_matches_jax():
+    (*_, pm), (*_, jm) = _obs_sections()
+    assert list(pm) == list(jm) and len(pm["win_idx"]) == 8
+    for k in pm:
+        assert np.array_equal(pm[k], jm[k], equal_nan=True), k
+
+
+def test_count_dispatches_counts_outermost_calls():
+    """Every segment of a stream is one ``dram.resume`` dispatch; a call
+    made inside another entry point (``mesh_step`` -> ``shard_step`` ->
+    ``dram.resume``) counts once, for the outermost."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import orchestrator
+    from repro_torch.obs.profile import count_dispatches
+    _, cfg = _cfgs("figcache_fast", period=0)
+    tr = _reuse_trace()
+    with count_dispatches() as n:
+        pst.simulate_stream(pst.iter_chunks(tr, 80), cfg, device=CPU)
+    assert {k: v for k, v in n.items() if v} == {"dram.resume": 4}
+    mesh = mesh_lib.make_sweep_mesh(devices=[CPU], n_params=1,
+                                    n_channels=1)
+    prog = orchestrator.init_progress(cfg.static, 1, 1, device=CPU)
+    seg = pd.Trace(*[np.asarray(x)[None, :16] for x in tr])
+    with count_dispatches() as n:
+        orchestrator.mesh_step(mesh, seg, cfg.static, pt.stack_params(
+            [cfg.params(device=CPU)]), prog)
+    assert {k: v for k, v in n.items() if v} == {"orchestrator.mesh_step": 1}
+    assert pd.resume is not None and "shim" not in pd.resume.__name__
+
+
+def test_profile_contracts_on_cpu():
+    from repro_torch.obs.profile import profile_contracts
+    rec = profile_contracts(["sweep.capacity", "obs.tail-latency"],
+                            device=CPU)
+    assert list(rec) == ["sweep.capacity", "obs.tail-latency"]
+    cap, tail = rec["sweep.capacity"], rec["obs.tail-latency"]
+    assert (cap["launches_cold"], cap["launches_warm"]) == (1, 1)
+    assert (tail["launches_cold"], tail["launches_warm"]) == (4, 4)
+    for r in rec.values():
+        assert r["builds_cold"] == r["builds_warm"] == 0 == r["build_s"]
+        assert r["sim_scan_launches_warm"] == 0
+        assert r["warm_s"] > 0 and r["cold_extra_s"] >= 0
+    assert cap["dispatches_warm"] == {"dram.run_sweep": 1}
+    assert tail["dispatches_warm"] == {"dram.sweep_resume_tel": 4}
+
+
+def test_obs_cli_runs_every_section(tmp_path, monkeypatch, capsys):
+    """``python -m repro_torch.obs --device cpu`` end to end, its sections
+    shrunk to the tiny size: the record has the JAX record's keys (plus
+    ``device``) and the pin holds."""
+    from repro_torch.obs import __main__ as pobs
+    tax, pm = pobs.measure_tax, pobs.phase_mix_series
+    monkeypatch.setattr(pobs, "measure_tax", lambda n, c, per, reps, rounds,
+                        slo_ns, device: tax(256, 64, per, 1, 1, slo_ns,
+                                            device))
+    monkeypatch.setattr(pobs, "phase_mix_series", lambda n, per, c, pl,
+                        device: pm(256, per, 64, 64, device))
+    out = tmp_path / "BENCH_obs.json"
+    rc = pobs.main(["--quick", "--device", "cpu", "--json", str(out),
+                    "--outdir", str(tmp_path), "--period", "32"])
+    rec = json.loads(out.read_text())
+    text = capsys.readouterr().out
+    assert rec["windows_bitwise_chunked_vs_monolithic"] is True
+    assert rc == (0 if rec["telemetry_tax"] <= pobs.TAX_TRIPWIRE else 1)
+    assert rec["device"] == "cpu" and set(rec["profile"]) == set(
+        pobs._QUICK_PROFILE)
+    assert {"bench", "quick", "telemetry_tax", "telemetry_tax_rounds",
+            "tail_latency", "phase_mix", "profile"} <= set(rec)
+    assert (tmp_path / "obs_phase_mix.csv").exists()
+    assert "[obs] profiling quick subset" in text
