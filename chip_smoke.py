@@ -1,7 +1,8 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
 simulator (its controllers, streamed replay, chunk codec, checkpoints,
 device workload generator and fault-tolerant sweep orchestrator too), the
-FIGCache-KV serving path and the dense LM serving path.
+FIGCache-KV serving path and the LM serving paths (dense; MoE with MLA;
+the sliding-window ring cache).
 
     python3 chip_smoke.py
 
@@ -176,7 +177,33 @@ Phases, each of which raises (non-zero exit) on any failed check:
    verdict (reported, not a failure), p50 / p99 / p999 and the over-SLO
    rate per capacity point, the phase_mix hit-rate range and the contract
    profile (cold / warm walls, builds, dispatches, sim_scan launches);
-16. summary: one ``{"kernels": [...]}`` JSON line (device times from
+16. MoE + MLA serving: ``serve.run("deepseek-v2-lite", reduced=False)``
+   (all 27 layers at full width, 64 routed experts top-6 + 2 shared,
+   random weights from seed 0; ~29.3 GiB of bf16 weights) at phase 8's
+   sizes (4 x 4096 prompt tokens, 64 greedy tokens): flash_attention
+   launches read just around it (27, one per layer, at D 192, H = Hkv =
+   16); tokens in range, finite logits; a warm prefill bitwise equal to
+   the served one, recording each MoE layer's dropped share and input;
+   ``moe_forward`` against ``moe_dense_ref`` on the card on the first MoE
+   layer's prefill input (T 16384, C 3072) and on every MoE layer's input
+   of one decode step (routing equal, within 2e-2 plus one bf16 ulp), one
+   decode step under sync-debug mode "error", RoPE's sin / cos bitwise
+   equal on the card and the CPU; the
+   prefill rerun with the plain version at the call site, each layer's
+   kernel output within 2e-2 plus one bf16 ulp of plain; prefill ms cold
+   and warm, decode ms/step and tokens/s beside the step's expert-weight
+   bound, peak memory against the weights, a profile of 4 decode steps;
+   flash_attention at MLA's shape (B 4, S 4096, H = Hkv = 16, D 192, bf16,
+   causal) and D-192 corners at H = Hkv against plain, then the kernel,
+   plain and SDPA timed as device time beside the FLOP bound; then
+   Mixtral-8x22B at full width cut to 2 of 56 layers, batch 2, prompt 8192
+   (twice its window), 32 tokens: 2 flash_attention launches in the
+   prefill, the prefill rerun with the plain version at the call site
+   (each layer's kernel output within 2e-2 plus one bf16 ulp of plain), its
+   first 4 ring decode steps (every one past the ring's wrap) held layer
+   by layer against an 8232-slot window-masked cache on the same inputs,
+   the other 28 timed, finite logits;
+17. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
@@ -185,7 +212,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    launches, 0, a field apart; sim_scan's launches on each simulator path
    of phases 4 and 9-15, counted from 0 around it, in ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
-   ``tel_tax``),
+   ``tel_tax``; flash_attention's launches on each LM path, counted from
+   0 around its prefill, in ``path_launches``, and its times at MLA's
+   shape in ``mla``),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -250,6 +279,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.runtime.faults import (FaultEvent, FaultPlan,  # noqa: E402
                                         InjectedKill)
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models.sincosf import sincos_f32  # noqa: E402
+from repro_torch.models import Plan, build_model  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
@@ -269,6 +302,17 @@ EMBED_STEPS, EMBED_TOKENS, ZIPF_S = 256, 64, 1.1
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-7b", 4, 4096, 64
 # the reduced StableLM-12B (head dim 20: the padded head-dim path)
 PAD_ARCH = "stablelm-12b"
+# MoE + MLA serving: DeepSeek-V2-Lite whole (src/repro/configs/
+# deepseek_v2_lite.py, all 27 layers at full width) at phase 8's sizes; then
+# Mixtral-8x22B at full width cut to 2 of its 56 layers (memory: 56 layers
+# are ~282 GB), batch 2, a prompt of twice its 4096-token window (the
+# window mask bites in the prefill, which keeps its last 4096 keys in the
+# ring) and 32 tokens, so every decode step runs the ring past its wrap;
+# its first 4 steps held against a plain window-masked cache of prompt +
+# 40 slots
+MLA_ARCH = "deepseek-v2-lite"
+RING_ARCH, RING_LAYERS, RING_BATCH, RING_PROMPT, RING_GEN, RING_CHECK = \
+    "mixtral-8x22b", 2, 2, 8192, 32, 4
 
 # tests/test_obs.py's controllers
 SCHEDS = {
@@ -2670,6 +2714,19 @@ def ulp_excess(got, want):
     return float(((got.float() - want).abs() - want.abs() * 2 ** -7).max())
 
 
+def checked_mha(real, err, excess):
+    """``attention.mha`` that runs the plain version and the kernel on the
+    same inputs, records the kernel's error and returns the plain output."""
+    def checked(q, k, v, *, causal=True, window=0, scale=None):
+        want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        got = real(q, k, v, causal=causal, window=window, scale=scale)
+        err.append(float((got.float() - want.float()).abs().max()))
+        excess.append(ulp_excess(got, want))
+        return want
+    return checked
+
+
 def phase_lm(dev):
     cfg = configs.get(LM_ARCH)
     log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -2732,15 +2789,7 @@ def phase_lm(dev):
     # heads and 4 KV heads) gives scores of std ~300, so a one-ulp change in
     # the residual stream flips attention patterns in the layers above.
     layer_err, layer_excess = [], []
-
-    def checked(q, k, v, *, causal=True, window=0):
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        got = real_mha(q, k, v, causal=causal, window=window)
-        layer_err.append(float((got.float() - want.float()).abs().max()))
-        layer_excess.append(ulp_excess(got, want))
-        return want
-
-    plain, t_plain = prefill(checked)
+    plain, t_plain = prefill(checked_mha(real_mha, layer_err, layer_excess))
     check(len(layer_err) == cfg.n_layers and bool(torch.isfinite(plain).all())
           and max(layer_excess) <= 2e-2, f"lm: kernel vs plain on the "
           f"layers' own inputs beyond one bf16 ulp: {layer_excess} (max abs "
@@ -2791,17 +2840,8 @@ def phase_lm_padded(dev):
         res.logits[..., :v]).all()) and bool(torch.isfinite(
             res.prefill_logits[..., :v]).all()),
           f"{PAD_ARCH}: tokens {res.tokens.shape} or logits not finite")
-    real_mha = attention.mha
     excess, err = [], []
-
-    def checked(q, k, v, *, causal=True, window=0):
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        got = real_mha(q, k, v, causal=causal, window=window)
-        err.append(float((got.float() - want.float()).abs().max()))
-        excess.append(ulp_excess(got, want))
-        return want
-
-    with patched(attention, mha=checked):
+    with patched(attention, mha=checked_mha(attention.mha, err, excess)):
         res.model.prefill({"tokens": res.prompt},
                           res.model.init_decode(2, 64 + 8 + 8))
     torch.cuda.synchronize()
@@ -2815,6 +2855,348 @@ def phase_lm_padded(dev):
         f"kernel output vs plain max abs {max(err):.4g}, beyond one bf16 ulp "
         f"{max(excess):.4g} (held to 2e-2)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: MoE + MLA serving, and the sliding-window ring
+
+def moe_vs_dense(p, x, cfg, plan, what):
+    """``moe_forward`` (routing returned) against ``moe_dense_ref`` on the
+    card on one layer input: routing (idx, keep, slot) equal, outputs
+    within 2e-2 plus one bf16 ulp; (max abs error, ulp excess, C)."""
+    y, _, r = moe_mod.moe_forward(p, x, cfg, plan, routing=True)
+    want, q = moe_mod.moe_dense_ref(p, x, cfg, plan)
+    for name in ("idx", "keep", "slot"):
+        check(torch.equal(getattr(r, name), getattr(q, name)),
+              f"moe vs dense reference: {name} differs ({what})")
+    err = float((y.float() - want.float()).abs().max())
+    excess = ulp_excess(y, want)
+    check(excess <= 2e-2, f"moe vs dense reference beyond 2e-2 plus one bf16 "
+          f"ulp ({what}): {excess} (max abs {err})")
+    return err, excess, moe_mod.capacity(cfg, plan, *x.shape[:2])
+
+
+def recording_moe(store):
+    """``moe.moe_forward`` that keeps each call's input, parameters and
+    dropped share (no host read)."""
+    real = moe_mod.moe_forward
+
+    def rec(p, x, cfg, plan, **kw):
+        out = real(p, x, cfg, plan, **kw)
+        store.append((p, x, out[1]["dropped_frac"]))
+        return out
+    return rec
+
+
+def phase_mla_flash(dev, cfg):
+    """flash_attention at MLA's shape (B 4, S 4096, H = Hkv = 16, D 192,
+    bf16, causal) against the plain version, and D-192 corners at H =
+    Hkv; then timed as phase 7 times Qwen2-7B's."""
+    d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    h = cfg.n_heads
+    shape = (LM_BATCH, LM_PROMPT, h, h, d, True, 0)
+    max_err = 0.0
+    for dtype, tol, rel_tol in ((torch.float32, 2e-5, 1e-4),
+                                (torch.bfloat16, 2e-2, 1e-2)):
+        cases = [(1, 65, 2, 2, d, True, 0), (1, 300, 4, 4, d, True, 50),
+                 (2, 129, 16, 16, d, True, 0)]
+        if dtype == torch.bfloat16:
+            cases.append(shape)
+        for i, (B, S, H, hkv, D, causal, window) in enumerate(cases):
+            q, k, v = flash_case(B, S, H, hkv, D, dtype, seed=300 + i,
+                                 dev=dev)
+            got = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            rel = row_rel_err(got, want)
+            max_err = max(max_err, err)
+            check(err <= tol and rel <= rel_tol, f"flash_attention at D {D} "
+                  f"H = Hkv: abs {err} (bar {tol}), row-relative {rel} (bar "
+                  f"{rel_tol}) at {dtype} {(B, S, H, hkv, D, causal, window)}")
+            del q, k, v, got, want
+    B, S, H, hkv, D, causal, window = shape
+    q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=399, dev=dev)
+    qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flop, n_bytes = flash_work(B, S, H, hkv, D, 2, causal, window)
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    res = {"ms": graph_ms(lambda: flash_kernel.flash_attention(q, k, v),
+                          reps=3, samples=7),
+           "plain_ms": graph_ms(lambda: flash_attention_ref(q, k, v), reps=1,
+                                samples=5),
+           "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                  reps=3, samples=7),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "max_abs_err": max_err, "shape": list(shape[:5])}
+    res["tflops"] = flop / res["ms"] * 1e-9
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    log(f"[mla] flash_attention at MLA's prefill B={B} S={S} H={H} Hkv={hkv} "
+        f"D={D} bf16 causal, and D {D} corners at H = Hkv (S 65, 129, 300, "
+        f"window 50), f32 and bf16: within f32 2e-5 / bf16 2e-2 of plain, "
+        f"max_abs_err={max_err:.3g}; device time (CUDA-graph replay) kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
+        f"{res['library_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}; {flop:.3e} FLOP at 989 TFLOP/s {t_ops:.4f} ms, "
+        f"{n_bytes} bytes at 3.35 TB/s {t_bytes:.4f} ms); kernel at "
+        f"{res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of the bound")
+    return res
+
+
+def phase_lm_moe(dev):
+    """DeepSeek-V2-Lite served whole through ``serve.run(reduced=False)``
+    (MLA prefill through the D-192 kernel, MoE FFNs), checked and timed;
+    then Mixtral-8x22B's ring decode at full width, 2 layers."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(MLA_ARCH)
+    m = cfg.moe
+    log(f"[mla] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"H={cfg.n_heads} MLA (rank {cfg.mla.kv_lora_rank}, nope "
+        f"{cfg.mla.qk_nope_head_dim}, rope {cfg.mla.qk_rope_head_dim}, v "
+        f"{cfg.mla.v_head_dim}), {m.n_experts} routed experts top-{m.top_k} + "
+        f"{m.n_shared} shared, d_expert {m.d_expert}, layer 0 dense d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; batch {LM_BATCH}, prompt "
+        f"{LM_PROMPT}, {LM_GEN} greedy tokens; random weights from seed 0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_kernel.COUNTER.launches = 0
+    res = serve.run(MLA_ARCH, reduced=False, prompt_len=LM_PROMPT, gen=LM_GEN,
+                    batch=LM_BATCH, seed=0, device=dev)
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches == cfg.n_layers, f"{MLA_ARCH}: flash_attention launched "
+          f"{launches} times in one prefill, expected {cfg.n_layers}")
+    v = cfg.vocab_size
+    check(res.tokens.shape == (LM_BATCH, LM_GEN)
+          and 0 <= res.tokens.min() and res.tokens.max() < v,
+          f"{MLA_ARCH}: generated tokens {res.tokens.shape} out of range")
+    for name, lg in (("prefill", res.prefill_logits), ("decode", res.logits)):
+        check(lg.shape == (LM_BATCH, 1, res.model.plan.padded_vocab(v))
+              and bool(torch.isfinite(lg[..., :v]).all()),
+              f"{MLA_ARCH}: {name} logits not finite or of the wrong shape")
+    model, batch, plan = res.model, {"tokens": res.prompt}, res.model.plan
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    moe_layers = [lay.ffn for lay in model.stack.layers if "router" in
+                  lay.ffn]
+    expert_bytes = sum((f.wi.numel() + f.wo.numel()) * 2 for f in moe_layers)
+    t = res.timings
+    step_bound = expert_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[mla] launches flash_attention={launches} (one per layer, D "
+        f"{flash_kernel.padded_head_dim(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)}); "
+        f"prefill {t['prefill_s'] * 1e3:.1f} ms (first, cold); decode "
+        f"{t['ms_per_step']:.3f} ms/step over {LM_GEN} steps "
+        f"({t['tok_s']:.1f} tokens/s); each step reads all {m.n_experts} "
+        f"experts of the {len(moe_layers)} MoE layers (C = T k = "
+        f"{LM_BATCH * m.top_k} <= 8192), {expert_bytes / 1e9:.2f} GB: at "
+        f"least {step_bound:.3f} ms/step at 3.35 TB/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f} GiB)")
+
+    def prefill(**patch):
+        caches = model.init_decode(LM_BATCH, LM_PROMPT + LM_GEN + 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for module, attrs in patch.values():
+                stack.enter_context(patched(module, **attrs))
+            _, logits = model.prefill(batch, caches)
+        torch.cuda.synchronize()
+        return logits[:, 0, :v], time.perf_counter() - t0
+
+    # a warm prefill, its MoE layers' inputs and dropped shares recorded:
+    # bitwise equal to the served one (the combine adds in a fixed order)
+    store = []
+    warm, t_warm = prefill(moe=(moe_mod, {"moe_forward": recording_moe(store)}))
+    check(torch.equal(warm, res.prefill_logits[:, 0, :v]),
+          f"{MLA_ARCH}: two prefills of the same prompts differ")
+    drops = [float(d) for _, _, d in store]
+    check(len(store) == len(moe_layers), f"{MLA_ARCH}: {len(store)} MoE "
+          f"calls in a prefill, expected {len(moe_layers)}")
+    p1, x1, _ = store[0]
+    del store
+    err, excess, cap = moe_vs_dense(p1, x1, cfg, plan, "first MoE layer's "
+                                    "prefill input")
+    del x1
+    log(f"[mla] warm prefill {t_warm * 1e3:.1f} ms, bitwise equal to the "
+        f"served one; dropped_frac per MoE layer at prefill (C = {cap} of "
+        f"T k = {LM_BATCH * LM_PROMPT * m.top_k}): "
+        f"{[round(d, 5) for d in drops]}; MoE vs moe_dense_ref on the first "
+        f"MoE layer's prefill input (T = {LM_BATCH * LM_PROMPT}): routing "
+        f"equal, max abs {err:.4g}, beyond one bf16 ulp {excess:.4g}")
+
+    # the prefill rerun with the plain version at the call site: each
+    # layer's kernel output on that layer's own inputs
+    layer_err, layer_excess = [], []
+    plain, t_plain = prefill(attn=(attention, {"mha": checked_mha(
+        attention.mha, layer_err, layer_excess)}))
+    check(len(layer_err) == cfg.n_layers and bool(torch.isfinite(plain).all())
+          and max(layer_excess) <= 2e-2, f"{MLA_ARCH}: kernel vs plain on "
+          f"the layers' own inputs beyond one bf16 ulp: {layer_excess} (max "
+          f"abs {layer_err})")
+    log(f"[mla] prefill rerun with the plain version patched in: each layer's "
+        f"kernel output vs plain on its own inputs max abs "
+        f"{max(layer_err):.4g}, beyond one bf16 ulp {max(layer_excess):.4g} "
+        f"over {len(layer_err)} layers (held to 2e-2); max logit difference "
+        f"{float((warm - plain).abs().max()):.4g} (not bounded); plain with "
+        f"the kernel beside it {t_plain * 1e3:.1f} ms")
+    del warm, plain
+
+    # one decode step from the prefilled caches: every MoE layer's input
+    # against the dense reference; then where 4 steps' time goes
+    caches, _ = model.prefill(batch, model.init_decode(
+        LM_BATCH, LM_PROMPT + LM_GEN + 8))
+    tok = torch.from_numpy(res.tokens[:, :1]).to(dev)
+    store = []
+    with patched(moe_mod, moe_forward=recording_moe(store)):
+        model.decode_step(caches, tok, LM_PROMPT)
+    dec = [moe_vs_dense(p, x, cfg, plan, f"decode, MoE layer {i}")
+           for i, (p, x, _) in enumerate(store)]
+    check(len(dec) == len(moe_layers), f"{MLA_ARCH}: {len(dec)} MoE calls "
+          "in a decode step")
+    log(f"[mla] MoE vs moe_dense_ref on every MoE layer's input of one "
+        f"decode step ({len(dec)} layers, T = {LM_BATCH}, C = {dec[0][2]}): "
+        f"routing equal, max abs {max(e for e, _, _ in dec):.4g}, beyond one "
+        f"bf16 ulp {max(x for _, x, _ in dec):.4g}")
+    del store
+
+    # the decode step reads nothing back to the host: sync-debug "error"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(caches, tok, LM_PROMPT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # RoPE's sinf / cosf (float64 torch ops) give the CPU's bits on the card
+    ang = layers_mod.rope_angles(torch.arange(LM_PROMPT + LM_GEN),
+                                 cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    want_sc = sincos_f32(ang)
+    got_sc = sincos_f32(ang.to(dev))
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(want_sc, got_sc)),
+          f"{MLA_ARCH}: RoPE sin / cos on the card differ from the CPU's")
+    log(f"[mla] one decode step under sync-debug mode 'error': no "
+        f"synchronising call; RoPE sin / cos of {ang.numel()} angles "
+        f"bitwise equal on the card and the CPU")
+
+    def replay():
+        c = caches
+        for i in range(4):
+            c, _ = model.decode_step(c, tok, LM_PROMPT + i)
+        torch.cuda.synchronize()
+
+    prof = profile_replay(f"{MLA_ARCH} decode B={LM_BATCH}", replay, 4)
+    del caches, res, model
+    torch.cuda.empty_cache()
+    flash = phase_mla_flash(dev, cfg)
+    out = {"launches": launches, "prefill_ms": t["prefill_s"] * 1e3,
+           "warm_prefill_ms": t_warm * 1e3,
+           "ms_per_step": t["ms_per_step"], "tok_s": t["tok_s"],
+           "step_bound_ms": step_bound, "peak_gib": peak / 2**30,
+           "weights_gib": weights / 2**30, "dropped_frac": drops,
+           "profile": prof, "flash": flash}
+    out["ring"] = phase_ring(dev)
+    log(f"[mla] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_ring(dev):
+    """Mixtral-8x22B at full width, 2 layers: prefill of its window, the
+    ring's first decode steps held layer by layer against a plain
+    window-masked cache on the same inputs, then the rest timed."""
+    cfg = dataclasses.replace(configs.get(RING_ARCH), n_layers=RING_LAYERS)
+    model = build_model(cfg, Plan(moe_capacity=0), device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    model.init_params(rng)
+    prompt = torch.randint(0, cfg.vocab_size, (RING_BATCH, RING_PROMPT),
+                           generator=rng, device=dev)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch, v = {"tokens": prompt}, cfg.vocab_size
+    ring = model.init_decode(RING_BATCH, RING_PROMPT + RING_GEN + 8)
+    check(ring[0].k.shape[1] == cfg.sliding_window, "mixtral: the cache is "
+          "not a ring of the window")
+    torch.cuda.synchronize()
+    flash_kernel.COUNTER.launches = 0
+    t0 = time.perf_counter()
+    ring, logits = model.prefill(batch, ring)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = flash_kernel.COUNTER.launches
+    check(launches == cfg.n_layers, f"mixtral: flash_attention launched "
+          f"{launches} times in one prefill, expected {cfg.n_layers}")
+    check(bool(torch.isfinite(logits[..., :v]).all()), "mixtral: prefill "
+          "logits not finite")
+    check(ring[0].length == RING_PROMPT, "mixtral: the ring's length after "
+          "the prefill is wrong")
+    # the prefill rerun with the plain version at the call site: each
+    # layer's kernel output (GQA 48 / 8, window mask biting) on its inputs
+    attn_err, attn_excess = [], []
+    with patched(attention, mha=checked_mha(attention.mha, attn_err,
+                                            attn_excess)):
+        model.prefill(batch, model.init_decode(RING_BATCH, RING_PROMPT))
+    check(len(attn_err) == cfg.n_layers and max(attn_excess) <= 2e-2,
+          f"mixtral: kernel vs plain on the layers' own inputs beyond one "
+          f"bf16 ulp: {attn_excess} (max abs {attn_err})")
+    log(f"[ring] prefill rerun with the plain version patched in: each "
+        f"layer's kernel output (B={RING_BATCH} S={RING_PROMPT} "
+        f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd}, window "
+        f"{cfg.sliding_window}) vs plain on its own inputs max abs "
+        f"{max(attn_err):.4g}, beyond one bf16 ulp {max(attn_excess):.4g} "
+        f"over {len(attn_err)} layers (held to 2e-2)")
+    hkv = model.plan.padded_kv_heads(cfg.n_kv_heads)
+    full = [attention.init_kv_cache(RING_BATCH, RING_PROMPT + 40, hkv, cfg.hd,
+                                    False, device=dev)
+            for _ in range(cfg.n_layers)]
+    full, _ = model.prefill(batch, full)
+    real, calls, excess, errs = attention.gqa_forward, [0], [], []
+
+    def both(p, h, cfg_, plan, *, cache, decode, **kw):
+        i = calls[0] % cfg_.n_layers
+        calls[0] += 1
+        y, c = real(p, h, cfg_, plan, cache=cache, decode=decode, **kw)
+        want, full[i] = real(p, h, cfg_, plan, cache=full[i], decode=decode,
+                             **kw)
+        errs.append(float((y.float() - want.float()).abs().max()))
+        excess.append(ulp_excess(y, want))
+        return y, c
+
+    tok = logits[:, -1].argmax(-1)[:, None]
+    finite = True
+    with patched(attention, gqa_forward=both):
+        for i in range(RING_CHECK):
+            ring, logits = model.decode_step(ring, tok, RING_PROMPT + i)
+            finite &= bool(torch.isfinite(logits[..., :v]).all())
+            tok = logits[:, -1].argmax(-1)[:, None]
+    check(len(excess) == RING_CHECK * cfg.n_layers and max(excess) <= 2e-2,
+          f"mixtral: ring vs window-masked full cache per layer beyond 2e-2 "
+          f"plus one bf16 ulp: {excess} (max abs {errs})")
+    del full
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RING_CHECK, RING_GEN):
+        ring, logits = model.decode_step(ring, tok, RING_PROMPT + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    steps = RING_GEN - RING_CHECK
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    finite &= bool(torch.isfinite(logits[..., :v]).all())
+    check(finite and ring[0].length == RING_PROMPT + RING_GEN,
+          "mixtral: decode logits not finite or the ring's length wrong")
+    log(f"[ring] {cfg.name} at full width, {cfg.n_layers} of "
+        f"{configs.get(RING_ARCH).n_layers} layers "
+        f"(weights {weights / 2**30:.2f} GiB), window {cfg.sliding_window}: "
+        f"batch {RING_BATCH}, prompt {RING_PROMPT} (the ring keeps its last "
+        f"{cfg.sliding_window}); flash_attention "
+        f"launches {launches} in the prefill ({t_prefill * 1e3:.1f} ms, "
+        f"cold); {RING_CHECK} ring decode steps past the wrap vs a "
+        f"{RING_PROMPT + 40}-slot window-masked cache, each layer's "
+        f"attention output on the same inputs: max abs {max(errs):.4g}, "
+        f"beyond one bf16 ulp {max(excess):.4g} (held to 2e-2); then "
+        f"{steps} steps {ms:.3f} ms/step; finite logits")
+    del model, ring
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": t_prefill * 1e3,
+            "ms_per_step": ms, "max_excess": max(excess),
+            "attn_max_excess": max(attn_excess)}
 
 
 # ---------------------------------------------------------------------------
@@ -2998,6 +3380,7 @@ def main():
     flash = phase_flash(dev)
     lm_launches = phase_lm(dev)
     phase_lm_padded(dev)
+    mla = phase_lm_moe(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -3074,7 +3457,17 @@ def main():
         "launches": lm_launches, "max_abs_err": flash["max_abs_err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]})
+        "library_ms": flash["library_ms"],
+        # each LM path's launches, counted from 0 around its prefill, and
+        # the kernel at MLA's shape (D 192, H = Hkv = 16)
+        "path_launches": {LM_ARCH: lm_launches, MLA_ARCH: mla["launches"],
+                          f"{RING_ARCH}-{RING_LAYERS}l":
+                              mla["ring"]["launches"]},
+        "mla": {k: mla["flash"][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err")}})
+    for path, n in rows[-1]["path_launches"].items():
+        check(n > 0, f"the {path} path launched flash_attention no time")
     print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -187,7 +187,9 @@ def kv_caches_from_numpy(cfg, tree: Sequence, device=None) -> List[KVCache]:
     """The JAX package's decode caches as numpy arrays (``jax.tree.map(
     np.asarray, caches)``: one list per scan group of KVCache tuples
     ``(k, v, k_scale, v_scale, length)``) -> the port's per-layer caches,
-    so a JAX prefill can continue in the port's decode."""
+    so a JAX prefill can continue in the port's decode.  An MLA layer's
+    latent cache (c_kv in k, the RoPE key in v) and a sliding-window ring
+    (its length past its slots) carry over as they are."""
     dev = resolve_device(device)
     transformer.check_ported(cfg)
     caches = []

@@ -67,28 +67,32 @@ def padded_head_dim(d: int) -> int:
 
 
 def padded(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True, window: int = 0) -> torch.Tensor:
+           causal: bool = True, window: int = 0,
+           scale: float | None = None) -> torch.Tensor:
     """``attend(q, k, v, causal=, window=, scale=)`` at the padded head dim:
     q, k, v zero-padded to ``padded_head_dim(D)`` columns, the true
-    ``D ** -0.5`` as the scale, the output's first D columns.  Exact: the
-    zero columns add nothing to the scores, and the output's padded columns
-    are P times zeros."""
+    ``D ** -0.5`` as the scale (or ``scale`` when given), the output's
+    first D columns.  Exact: the zero columns add nothing to the scores,
+    and the output's padded columns are P times zeros."""
     d = q.shape[-1]
     dp = padded_head_dim(d)
+    scale = d ** -0.5 if scale is None else scale
     if dp == d:
-        return attend(q, k, v, causal=causal, window=window, scale=d ** -0.5)
+        return attend(q, k, v, causal=causal, window=window, scale=scale)
     q, k, v = (F.pad(x, (0, dp - d)) for x in (q, k, v))
-    out = attend(q, k, v, causal=causal, window=window, scale=d ** -0.5)
+    out = attend(q, k, v, causal=causal, window=window, scale=scale)
     return out[..., :d].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, S, H, D), k/v (B, S, Hkv, D) with
     ``H % Hkv == 0``, all contiguous and 16-byte aligned on one CUDA device,
     of one dtype (f32 or bf16), D at most ``HEAD_DIMS[-1]`` -> (B, S, H, D)
-    in that dtype (contract of ``ref.flash_attention_ref``).  A D outside
-    ``HEAD_DIMS`` runs zero-padded (``padded``).
+    in that dtype (contract of ``ref.flash_attention_ref``; scores scaled
+    by ``scale``, default D^-0.5).  A D outside ``HEAD_DIMS`` runs
+    zero-padded (``padded``).
 
     Runs on the current stream without synchronising; raises if the launch
     is refused."""
@@ -118,7 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"16-byte aligned on {q.device}")
     if q.numel() == 0:
         return torch.empty_like(q)
-    return padded(_launch, q, k, v, causal=causal, window=window)
+    return padded(_launch, q, k, v, causal=causal, window=window,
+                  scale=scale)
 
 
 def _launch(q, k, v, *, causal, window, scale):

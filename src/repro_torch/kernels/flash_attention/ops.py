@@ -16,13 +16,15 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int = 0) -> torch.Tensor:
+        causal: bool = True, window: int = 0,
+        scale: float | None = None) -> torch.Tensor:
     """q (B, S, H, D); k/v (B, S, Hkv, D) with ``H % Hkv == 0`` ->
-    (B, S, H, D).
+    (B, S, H, D), the f32 scores scaled by ``scale`` (default D^-0.5).
 
     With Hkv = H this is the JAX package's ``mha``; with Hkv < H, query
     head h reads KV head ``h // (H // Hkv)`` and K/V are never repeated."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window)
+                           causal=causal, window=window, scale=scale)

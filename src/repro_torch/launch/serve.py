@@ -25,7 +25,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.figkv import (FigKVState, figkv_decode_step, figkv_init,
                                figkv_prefill)
-from repro_torch.models import Model, build_model
+from repro_torch.models import Model, Plan, build_model
 
 
 class FigKVRun(NamedTuple):
@@ -57,10 +57,11 @@ def run(arch: str, *, reduced: bool = True, prompt_len: int = 64,
     ``prompt_len`` tokens into an exact KV cache of ``prompt_len + gen +
     8`` slots, then decode ``gen`` tokens greedily at positions
     ``prompt_len + i``.  Weights and prompts come from one generator on
-    the device."""
+    the device.  MoE models run drop-free up to 8192 assignments
+    (``Plan(moe_capacity=0)``), as the JAX package serves them."""
     dev = resolve_device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, Plan(moe_capacity=0), device=dev)
     rng = torch.Generator(device=dev).manual_seed(seed)
     model.init_params(rng)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import Spec
+from repro_torch.models.sincosf import sincos_f32
 
 NEG = -1e30
 
@@ -37,17 +38,22 @@ def rope_angles(positions: torch.Tensor, dim: int,
     half = dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float64,
-                                   device=positions.device),
-                      exps.double()).float()
+    freqs = torch.pow(float(theta), exps.double()).float()
     return positions[..., None].float() * freqs
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """x (B, S, H, D), angles (B, S, D/2) -> rotated x (rotate-half
-    convention), computed in f32 and rounded to x's dtype."""
-    sin = torch.sin(angles)[:, :, None, :]
-    cos = torch.cos(angles)[:, :, None, :]
+def rope_tables(angles: torch.Tensor):
+    """angles (B, S, D/2) -> (sin, cos), each (B, S, 1, D/2) f32: the C
+    library's ``sinf`` / ``cosf``, which the reference's CPU build calls
+    (``sincosf``).  Taken once a forward and shared by every layer."""
+    sin, cos = sincos_f32(angles)
+    return sin[:, :, None, :], cos[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
+    """x (B, S, H, D), rope ``rope_tables``' (sin, cos) -> rotated x
+    (rotate-half convention), computed in f32 and rounded to x's dtype."""
+    sin, cos = rope
     x1, x2 = x.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -1,6 +1,7 @@
 """Top-level model: embeddings + stack + head, prefill / decode.
 
-The port's counterpart of ``repro.models.model`` for the dense LM family.
+The port's counterpart of ``repro.models.model`` for decoder-only stacks
+of GQA or MLA attention with dense or MoE FFNs.
 ``build_model(cfg, plan, device)`` returns a ``Model``, an ``nn.Module``
 whose parameters mirror the JAX package's tree (``tok_embed``,
 ``stack.layers.<i>.attn.wq``, ..., ``stack.ln_f``, ``lm_head``):
@@ -11,8 +12,10 @@ whose parameters mirror the JAX package's tree (``tok_embed``,
   prefill(batch, caches)            -> (caches, last_logits (B, 1, Vp))
   decode_step(caches, tokens, pos)  -> (caches, logits (B, 1, Vp))
 
-``batch`` is ``{"tokens": (B, S) int}``.  Other families (moe, vlm, audio,
-ssm, hybrid) raise ``NotImplementedError``.
+``batch`` is ``{"tokens": (B, S) int}``.  The MoE layers' summed
+load-balance loss of the last call is ``_last_aux``.  The families with
+modules not ported yet (vlm, audio, ssm, hybrid) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (embed_lookup, embed_spec, lm_logits,
-                                       rope_angles)
+                                       rope_angles, rope_tables)
 from repro_torch.models.param import ParamTree, Spec
 from repro_torch.models.plan import DEFAULT_PLAN, Plan
 
@@ -44,11 +47,14 @@ class Model(ParamTree):
         dev = resolve_device(device)
         super().__init__(model_spec(cfg, plan), dev)
         self.cfg, self.plan, self.device = cfg, plan, dev
+        self._last_aux = None
 
-    def _angles(self, positions: torch.Tensor):
+    def _rope(self, positions: torch.Tensor):
         if self.cfg.rope_theta == 0:
             return None
-        return rope_angles(positions, self.cfg.hd, self.cfg.rope_theta)
+        cfg = self.cfg
+        dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.hd
+        return rope_tables(rope_angles(positions, dim, cfg.rope_theta))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -59,9 +65,10 @@ class Model(ParamTree):
     def _run(self, tokens: torch.Tensor, positions: torch.Tensor, caches,
              decode: bool):
         x = embed_lookup(self.tok_embed, tokens)
-        return transformer.stack_forward(
+        x, caches, self._last_aux = transformer.stack_forward(
             self.stack, x, self.cfg, self.plan,
-            angles=self._angles(positions), caches=caches, decode=decode)
+            rope=self._rope(positions), caches=caches, decode=decode)
+        return x, caches
 
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:

@@ -1,0 +1,199 @@
+"""Mixture-of-Experts FFN: top-k routing, sort-based dispatch into
+per-expert buffers of a static capacity, shared experts (DeepSeek-V2).
+
+The port's counterpart of ``repro.models.moe``, with the reference's casts
+and orders step for step: the router in f32, the softmax over the top k
+only, a stable sort by expert (so capacity keeps the earliest tokens of
+each expert), silu in f32 cast to bf16, the gating weight rounded to bf16
+before the product, and each token's k contributions added in bf16 in
+ascending expert order, as XLA's scatter-add adds them.  The expert
+products are batched matmuls over the (E, C, D) buffer, as the
+reference's einsums (no Pallas kernel computes them).
+
+``moe_dense_ref`` is a plain reference of the same function for the tests
+and the card check: expert by expert over its kept tokens, summed in f32.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ModelConfig
+from repro_torch.models.layers import swiglu
+from repro_torch.models.param import Spec
+from repro_torch.models.plan import Plan
+
+# drop-free capacity (moe_capacity <= 0) holds up to this many assignments;
+# past it, twice the mean load of an expert
+DROP_FREE_MAX = 8192
+
+
+class Routing(NamedTuple):
+    """The tokens' routing, in the (token, choice) layout."""
+    idx: torch.Tensor      # (T, k) expert ids, largest logit first
+    keep: torch.Tensor     # (T, k) bool: within the expert's capacity
+    slot: torch.Tensor     # (T, k) row e * C + rank of the (E * C)
+                           # buffer (e * C where dropped, as the reference)
+
+
+def moe_spec(cfg: ModelConfig, plan: Plan):
+    m = cfg.moe
+    d = cfg.d_model
+    f = plan.padded_ffn(m.d_expert)
+    p = {
+        "router": Spec((d, m.n_experts), ("embed", "experts"),
+                       dtype=torch.float32),
+        "wi": Spec((m.n_experts, d, 2 * f), ("experts", "embed", "ffn")),
+        "wo": Spec((m.n_experts, f, d), ("experts", "ffn", "embed")),
+    }
+    if m.n_shared:
+        fs = plan.padded_ffn(m.d_expert * m.n_shared)
+        p["shared_wi"] = Spec((d, 2 * fs), ("embed", "ffn"))
+        p["shared_wo"] = Spec((fs, d), ("ffn", "embed"))
+    return p
+
+
+def route_topk(logits: torch.Tensor, k: int):
+    """logits (T, E) f32 -> (weights (T, k) f32, idx (T, k)): the k largest
+    logits in descending order, equal ones lower expert id first (as
+    ``lax.top_k``; ``torch.topk`` promises no order among ties), and the
+    softmax over those k values only."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    e = torch.exp(vals - vals[..., :1])
+    return e / e.sum(dim=-1, keepdim=True), idx
+
+
+def capacity(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> int:
+    """Each expert's capacity C over the batch's ``batch * seq`` tokens (one
+    token group: the port runs on one device)."""
+    m = cfg.moe
+    tk = batch * seq * m.top_k
+    if plan.moe_capacity <= 0:
+        return tk if tk <= DROP_FREE_MAX else max(1, int(tk / m.n_experts *
+                                                         2.0))
+    return max(1, int(tk / m.n_experts * plan.moe_capacity))
+
+
+def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
+              C: int, routing: bool = False):
+    """Sort-based dispatch of the tokens xt (T, D), routed by
+    ``route_topk``'s (w, idx) (T, k) -> (y (T, D), dropped share,
+    ``Routing`` or None)."""
+    t, d = xt.shape
+    top_k = idx.shape[1]
+    n_e = m.n_experts
+    dev = xt.device
+    tk = t * top_k
+    flat_e = idx.reshape(tk)
+    flat_t = torch.arange(tk, device=dev) // top_k
+    order = torch.argsort(flat_e, stable=True)              # by expert
+    e_sorted = flat_e[order]
+    t_sorted = flat_t[order]
+    w_sorted = w.reshape(tk)[order]
+    starts = torch.searchsorted(e_sorted, torch.arange(n_e, device=dev))
+    rank = torch.arange(tk, device=dev) - starts[e_sorted]
+    keep = rank < C
+    slot = e_sorted * C + torch.where(keep, rank, 0)
+
+    # the kept rows land on distinct slots; a dropped row goes to the spare
+    # row E * C, which is cut off before the experts read the buffer
+    buf = xt.new_zeros((n_e * C + 1, d))
+    buf[torch.where(keep, slot, n_e * C)] = xt[t_sorted]
+    buf = buf[:n_e * C].view(n_e, C, d)
+
+    g, u = torch.bmm(buf, p["wi"]).chunk(2, dim=-1)
+    h = F.silu(g.float()).to(xt.dtype) * u
+    out = torch.bmm(h, p["wo"]).reshape(n_e * C, d)
+
+    gathered = out[torch.where(keep, slot, 0)] * \
+        (w_sorted * keep).to(xt.dtype)[:, None]
+    # XLA's scatter-add adds each token's k rows in t_sorted's order, i.e.
+    # by ascending expert id: k bf16 adds in that order, from zeros (no
+    # index_add_, whose CUDA atomics add in a varying order)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(tk, device=dev)
+    where = where.view(t, top_k).sort(dim=1).values
+    y = torch.zeros((t, d), dtype=xt.dtype, device=dev)
+    for r in range(top_k):
+        y = y + gathered[where[:, r]]
+    drop = 1.0 - keep.float().mean()
+    if not routing:
+        return y, drop, None
+    keep_tk, slot_tk = torch.empty_like(keep), torch.empty_like(slot)
+    keep_tk[order], slot_tk[order] = keep, slot
+    return y, drop, Routing(idx, keep_tk.view(t, top_k),
+                            slot_tk.view(t, top_k))
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
+                routing: bool = False):
+    """x (B, S, D) -> (y (B, S, D), {"load_balance_loss", "dropped_frac"}),
+    and the ``Routing`` as a third value when ``routing``.
+
+    All B * S tokens are dispatched as one group (the reference's group
+    count ``dp * pods`` is 1 on one device), and nothing here reads a
+    value back to the host."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n_e = m.n_experts
+    C = capacity(cfg, plan, b, s)
+    xt = x.reshape(b * s, d)
+    logits = xt.float() @ p["router"].float()               # (T, E)
+    w, idx = route_topk(logits, m.top_k)                    # (T, k)
+    y, drop, route = _dispatch(xt, w, idx, p, m, C, routing)
+    if m.n_shared:
+        y = y + swiglu({"wi": p["shared_wi"], "wo": p["shared_wo"]}, xt)
+
+    # load-balancing auxiliaries (Switch-style) over all T tokens; the
+    # counts are whole numbers in f32, exact in any order of the adds
+    # (``bincount`` would read the ids' range back to the host)
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    flat = idx.reshape(-1)
+    ce = logits.new_zeros(n_e).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32)) / flat.numel()
+    aux = {"load_balance_loss": n_e * (me * ce).sum(), "dropped_frac": drop}
+    if routing:
+        return y.reshape(b, s, d), aux, route
+    return y.reshape(b, s, d), aux
+
+
+def _ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
+    g, u = (x @ wi).chunk(2, dim=-1)
+    return (F.silu(g.float()).to(x.dtype) * u) @ wo
+
+
+@torch.no_grad()
+def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan
+                  ) -> Tuple[torch.Tensor, Routing]:
+    """Plain reference of ``moe_forward``'s output for the tests and the
+    card check: the same routing (the first C tokens of each expert, in
+    token order, are kept), then expert by expert its kept tokens through
+    its SwiGLU, scaled by their bf16 weight and summed per token in f32,
+    rounded once; the shared experts added in bf16.  Returns y (B, S, D)
+    and the ``Routing`` (its ``slot`` e * C + the kept rank, as the
+    dispatch's)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    C = capacity(cfg, plan, b, s)
+    xt = x.reshape(b * s, d)
+    w, idx = route_topk(xt.float() @ p["router"].float(), m.top_k)
+    keep = torch.zeros_like(idx, dtype=torch.bool)
+    slot = idx * C                                          # dropped: e * C
+    y = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+    for e in range(m.n_experts):
+        hit = idx == e                                      # (T, k)
+        rows = hit.any(dim=1).nonzero()[:C, 0]              # token order
+        if rows.numel() == 0:
+            continue
+        j = hit[rows].int().argmax(dim=1)
+        keep[rows, j] = True
+        slot[rows, j] = e * C + torch.arange(rows.numel(), device=x.device)
+        out = _ffn(xt[rows], p["wi"][e], p["wo"][e])
+        y[rows] += out.float() * w[rows, j].to(x.dtype).float()[:, None]
+    y = y.to(x.dtype)
+    if m.n_shared:
+        y = y + _ffn(xt, p["shared_wi"], p["shared_wo"])
+    return y.reshape(b, s, d), Routing(idx, keep, slot)

@@ -1,13 +1,14 @@
 """Decoder stack: layer layouts, parameter specs, caches and the forward.
 
-The port's counterpart of ``repro.models.transformer`` for stacks of
-attention + dense-FFN layers.  The JAX package groups identical layers and
-scans over each group's stacked parameters; the port keeps one entry per
-layer (``stack.layers[i]``, an ``nn.ModuleList``) and loops over them, so
-parameters are allocated and initialised layer by layer.  ``group_layout``
-stays: it is how the JAX package's stacked trees are read
-(``convert.model_params_from_numpy``).  Other mixers and FFNs (MLA, Mamba,
-RWKV, MoE) raise ``NotImplementedError``.
+The port's counterpart of ``repro.models.transformer`` for stacks whose
+layers mix GQA or MLA attention with a dense or MoE FFN.  The JAX package
+groups identical layers and scans over each group's stacked parameters;
+the port keeps one entry per layer (``stack.layers[i]``, an
+``nn.ModuleList``) and loops over them, so parameters are allocated and
+initialised layer by layer.  ``group_layout`` stays: it is how the JAX
+package's stacked trees are read (``convert.model_params_from_numpy``).
+Mamba and RWKV mixers, encoder-decoder stacks and M-RoPE raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.layers import (rms_norm, rms_norm_spec, swiglu,
                                        swiglu_spec)
 from repro_torch.models.plan import Plan
@@ -30,7 +31,8 @@ class LayerDef:
     ffn: Optional[str]   # dense | moe | None (rwkv: built-in channel mix)
 
 
-PORTED = LayerDef("attn", "dense")
+PORTED = {LayerDef(mixer, ffn) for mixer in ("attn", "mla")
+          for ffn in ("dense", "moe")}
 
 
 def layer_def(cfg: ModelConfig, i: int) -> LayerDef:
@@ -67,54 +69,81 @@ def group_layout(cfg: ModelConfig) -> List[Tuple[int, List[LayerDef]]]:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
-    attention + dense FFN with full (not sliding-window ring) caches."""
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is GQA
+    or MLA attention with a dense or MoE FFN, in a decoder-only stack
+    without M-RoPE."""
     other = sorted({f"{d.mixer}+{d.ffn}" for d in
                     (layer_def(cfg, i) for i in range(cfg.n_layers))
-                    if d != PORTED})
+                    if d not in PORTED})
     if other or cfg.is_encdec or cfg.m_rope:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family}) needs modules the port does "
             f"not have yet ({', '.join(other) or 'encoder / M-RoPE'}); the "
-            "port serves attention + dense-FFN stacks (ROADMAP.md Queue 1)")
+            "port serves attention (GQA, MLA) + dense / MoE FFN stacks "
+            "(ROADMAP.md Queue 1)")
 
 
-def _layer_spec(cfg: ModelConfig, plan: Plan):
-    return {"ln_mix": rms_norm_spec(cfg.d_model),
-            "attn": attention.gqa_spec(cfg, plan),
-            "ln_ffn": rms_norm_spec(cfg.d_model),
-            "ffn": swiglu_spec(cfg.d_model, plan.padded_ffn(cfg.d_ff))}
+def _layer_spec(cfg: ModelConfig, plan: Plan, d: LayerDef):
+    attn = attention.mla_spec if d.mixer == "mla" else attention.gqa_spec
+    ffn = moe.moe_spec(cfg, plan) if d.ffn == "moe" else \
+        swiglu_spec(cfg.d_model, plan.padded_ffn(cfg.d_ff))
+    return {"ln_mix": rms_norm_spec(cfg.d_model), "attn": attn(cfg, plan),
+            "ln_ffn": rms_norm_spec(cfg.d_model), "ffn": ffn}
 
 
 def stack_spec(cfg: ModelConfig, plan: Plan):
     check_ported(cfg)
-    return {"layers": [_layer_spec(cfg, plan) for _ in range(cfg.n_layers)],
+    return {"layers": [_layer_spec(cfg, plan, layer_def(cfg, i))
+                       for i in range(cfg.n_layers)],
             "ln_f": rms_norm_spec(cfg.d_model)}
 
 
 def init_caches(cfg: ModelConfig, plan: Plan, batch: int, s_max: int,
                 device=None) -> List[attention.KVCache]:
-    """One KV cache per layer."""
+    """One KV cache per layer: an MLA layer's holds the latent c_kv (k,
+    ``(B, s_max, 1, kv_lora_rank)``) and the RoPE key (v, ``(B, s_max, 1,
+    qk_rope_head_dim)``) in bf16; a sliding-window layer's is a ring of
+    ``min(s_max, window)`` slots."""
     hkv = plan.padded_kv_heads(cfg.n_kv_heads)
     s_alloc = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
-    return [attention.init_kv_cache(batch, s_alloc, hkv, cfg.hd,
-                                    plan.kv_quant, device=device)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for i in range(cfg.n_layers):
+        if layer_def(cfg, i).mixer == "mla":
+            m = cfg.mla
+            kv = [torch.zeros((batch, s_max, 1, n), dtype=torch.bfloat16,
+                              device=device)
+                  for n in (m.kv_lora_rank, m.qk_rope_head_dim)]
+            caches.append(attention.KVCache(*kv, k_scale=None, v_scale=None,
+                                            length=0))
+        else:
+            caches.append(attention.init_kv_cache(
+                batch, s_alloc, hkv, cfg.hd, plan.kv_quant, device=device))
+    return caches
 
 
 def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
-                  angles=None, caches=None, decode: bool = False):
-    """x (B, S, D) -> (normed (B, S, D), new caches or None)."""
+                  rope=None, caches=None, decode: bool = False):
+    """x (B, S, D) -> (normed (B, S, D), new caches or None, aux): aux is
+    the MoE layers' load-balance losses summed (f32 scalar)."""
     hmask = attention.head_mask(cfg, plan, device=x.device)
     new_caches = [] if caches is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(stack["layers"]):
+        d = layer_def(cfg, i)
+        mixer = attention.mla_forward if d.mixer == "mla" else \
+            attention.gqa_forward
         h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        y, nc = attention.gqa_forward(
-            p["attn"], h, cfg, plan, angles=angles,
-            cache=None if caches is None else caches[i], decode=decode,
-            hmask=hmask)
+        y, nc = mixer(p["attn"], h, cfg, plan, rope=rope,
+                      cache=None if caches is None else caches[i],
+                      decode=decode, hmask=hmask)
         x = x + y
-        x = x + swiglu(p["ffn"], rms_norm(x, p["ln_ffn"], cfg.norm_eps))
+        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+        if d.ffn == "moe":
+            y, a = moe.moe_forward(p["ffn"], h, cfg, plan)
+            x = x + y
+            aux = aux + a["load_balance_loss"]
+        else:
+            x = x + swiglu(p["ffn"], h)
         if new_caches is not None:
             new_caches.append(nc)
-    return rms_norm(x, stack["ln_f"], cfg.norm_eps), new_caches
+    return rms_norm(x, stack["ln_f"], cfg.norm_eps), new_caches, aux

@@ -1,4 +1,5 @@
-"""The port's dense LM stack (``repro_torch.models``, ``launch/serve.run``,
+"""The port's LM stack (``repro_torch.models``: GQA and MLA attention,
+dense and MoE FFNs, the sliding-window ring cache; ``launch/serve.run``,
 ``convert``) against the JAX package's ``repro.models``.
 
 Parameters made by the JAX package go to the port through
@@ -12,7 +13,10 @@ bit on the CPU they were measured on; they are held to the 2e-2 absolute
 of the acceptance bar, so that a one-ulp difference of a bf16 matmul on
 another CPU does not fail them.  At head_dim 16 (the reduced configs) the
 prefill's scale on the f32 product and the decode's scale of q in bf16
-agree exactly (0.25 is a power of two)."""
+agree exactly (0.25 is a power of two).  MLA's head dim (24 reduced, 192
+full) is no power of two: its prefill scales q in bf16 as the reference's
+``attend`` does, and the reduced DeepSeek-V2-Lite's logits were bitwise
+equal too, as were the reduced Mixtral's (ring cache included)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,9 +37,10 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.model import model_spec
 from repro_torch.models.param import param_count
 
-PORTED = ["qwen2-7b", "qwen1.5-0.5b", "stablelm-12b", "deepseek-67b"]
-NOT_PORTED = ["mixtral-8x22b", "deepseek-v2-lite", "jamba-v0.1-52b",
-              "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"]
+PORTED = ["qwen2-7b", "qwen1.5-0.5b", "stablelm-12b", "deepseek-67b",
+          "mixtral-8x22b", "deepseek-v2-lite"]
+NOT_PORTED = ["jamba-v0.1-52b", "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"]
+MOE = ["mixtral-8x22b", "deepseek-v2-lite"]
 B, S, S0 = 2, 24, 20
 
 
@@ -58,17 +63,46 @@ def _tokens(cfg, seed=2):
 
 def _pair(arch, seed=1, **plan):
     """The JAX model with its params and the port's model holding them;
-    ``plan`` sets the same Plan fields in both packages."""
+    ``plan`` sets the same Plan fields in both packages (MoE drop-free)."""
     jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
     jm = jbuild(jcfg, JPlan(moe_capacity=0, **plan))
     params = jm.init_params(jax.random.PRNGKey(seed))
-    tm = build_model(tcfg, Plan(**plan), device="cpu")
+    tm = build_model(tcfg, Plan(moe_capacity=0, **plan), device="cpu")
     tm.load_state_dict(convert.model_params_from_numpy(
         tcfg, jax.tree.map(np.asarray, params), device="cpu"))
     return jm, params, tm
 
 
 # ---------------- layers ----------------
+
+def _xla_sincos(a, jit):
+    f = lambda x: (jnp.sin(x), jnp.cos(x))
+    if jit:
+        return jax.jit(f)(a)
+    with jax.disable_jit():
+        return f(a)
+
+
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_rope_sincos_matches_xla_bitwise(arch, jit):
+    """``sincosf.sincos_f32`` (the port's RoPE sine and cosine) gives the
+    bits of the JAX package's ``jnp.sin`` / ``jnp.cos`` on every RoPE angle
+    of the configuration at full size over 16384 positions, and on 2^18
+    f32 bit patterns drawn over every finite value and their negatives."""
+    from repro_torch.models.sincosf import sincos_f32
+    cfg = tconfigs.get(arch)
+    dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.hd
+    ang = tlayers.rope_angles(torch.arange(16384), dim, cfg.rope_theta)
+    bits = np.random.default_rng(11).integers(0, 0x7f800000, 1 << 18)
+    bits[::2] |= 1 << 31
+    rand = torch.from_numpy(bits.astype(np.uint32).view(np.float32))
+    for a in (ang.reshape(-1), rand):
+        ts, tc = sincos_f32(a)
+        js, jc = _xla_sincos(jnp.asarray(a.numpy()), jit)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
 
 def test_layer_functions_match_jax_bitwise():
     """rms_norm (f32 statistics, bf16 round, times the weight),
@@ -87,8 +121,9 @@ def test_layer_functions_match_jax_bitwise():
     ja = jlayers.rope_angles(jnp.asarray(pos[:, :24]), 16, 1e6)
     ta = tlayers.rope_angles(torch.from_numpy(pos[:, :24]), 16, 1e6)
     jq, tq = _bf(rng.normal(size=(2, 24, 7, 16)))
-    np.testing.assert_array_equal(_np(jlayers.apply_rope(jq, ja)),
-                                  _np(tlayers.apply_rope(tq, ta)))
+    np.testing.assert_array_equal(
+        _np(jlayers.apply_rope(jq, ja)),
+        _np(tlayers.apply_rope(tq, tlayers.rope_tables(ta))))
     jwi, twi = _bf(rng.normal(size=(64, 352)) * 0.1)
     jwo, two = _bf(rng.normal(size=(176, 64)) * 0.1)
     np.testing.assert_array_equal(
@@ -226,7 +261,8 @@ def test_cache_update_past_the_end_raises():
 
 def _prefill_and_decode(jm, params, tm, toks):
     """prefill of 20 tokens + 4 teacher-forced decode steps through both
-    packages: the (JAX, port) logits of each step and the port's caches."""
+    packages: the (JAX, port) logits of each step, the port's caches and
+    the JAX package's."""
     with jax.disable_jit():
         jc = jm.init_decode(B, 64)
         jc, jl = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :S0])},
@@ -239,17 +275,19 @@ def _prefill_and_decode(jm, params, tm, toks):
             jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
             tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
             pairs.append((jl, tl))
-    return pairs, tc
+    return pairs, tc, jc
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"] + MOE)
 def test_prefill_and_decode_match_jax(arch):
     """prefill of 20 tokens + 4 teacher-forced decode steps; qwen1.5-0.5b
-    has tied embeddings (the head is the table, transposed)."""
+    has tied embeddings (the head is the table, transposed), the reduced
+    Mixtral MoE layers and a 64-token ring cache, the reduced
+    DeepSeek-V2-Lite MLA with a dense then an MoE layer."""
     jm, params, tm = _pair(arch)
     toks = _tokens(tm.cfg)
     v = tm.cfg.vocab_size
-    pairs, tc = _prefill_and_decode(jm, params, tm, toks)
+    pairs, tc, _ = _prefill_and_decode(jm, params, tm, toks)
     for step, (a, b) in enumerate(pairs):
         assert b.shape == (B, 1, 512) and b.dtype == torch.float32
         np.testing.assert_allclose(_np(b)[..., :v], _np(a)[..., :v],
@@ -265,7 +303,7 @@ def test_unpacked_gqa_decode_matches_jax():
     assert tm.cfg.n_heads > tm.cfg.n_kv_heads      # the GQA case
     toks = _tokens(tm.cfg)
     v = tm.cfg.vocab_size
-    pairs, _ = _prefill_and_decode(jm, params, tm, toks)
+    pairs, _, _ = _prefill_and_decode(jm, params, tm, toks)
     packed = build_model(tm.cfg, device="cpu")
     packed.load_state_dict(tm.state_dict())
     tc = packed.init_decode(B, 64)
@@ -300,12 +338,13 @@ def test_padded_heads_match_jax():
     np.testing.assert_allclose(_np(got), want, atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"] + MOE)
 def test_decode_matches_forward(arch):
-    """prefill + decode_step logits == the full forward's (exact cache),
-    as tests/test_models.py:49-76 holds the JAX package."""
+    """prefill + decode_step logits == the full forward's (exact cache;
+    MoE drop-free), as tests/test_models.py:49-76 holds the JAX
+    package."""
     cfg = tconfigs.get_reduced(arch)
-    m = build_model(cfg, device="cpu").init_params(
+    m = build_model(cfg, Plan(moe_capacity=0), device="cpu").init_params(
         torch.Generator().manual_seed(1))
     toks = torch.from_numpy(_tokens(cfg))
     full = m.forward({"tokens": toks})
@@ -343,6 +382,172 @@ def test_jax_prefill_continues_in_port_decode():
                                   _np(jax.tree.leaves(jc)[0][0]))
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_state_matches_the_jax_tree(arch):
+    """Every JAX leaf of the MoE / MLA trees lands on one port parameter of
+    its shape and dtype (the router in f32), the groups unstacked into
+    layers; the same number of values; the forward's summed load-balance
+    loss (``Model._last_aux``) within 1e-6 relative of the JAX model's."""
+    jm, params, tm = _pair(arch)
+    state = convert.model_params_from_numpy(
+        tm.cfg, jax.tree.map(np.asarray, params), device="cpu")
+    own = tm.state_dict()
+    assert sorted(state) == sorted(own)
+    for name, x in state.items():
+        assert x.shape == own[name].shape and x.dtype == own[name].dtype
+    assert own["stack.layers.1.ffn.router"].dtype == torch.float32
+    assert sum(x.numel() for x in state.values()) == \
+        sum(np.size(x) for x in jax.tree.leaves(params)) == \
+        param_count(model_spec(tm.cfg, tm.plan))
+    toks = _tokens(tm.cfg)
+    with jax.disable_jit():
+        jm.forward(params, {"tokens": jnp.asarray(toks)})
+    tm.forward({"tokens": torch.from_numpy(toks)})
+    want = float(jm._last_aux)
+    assert want > 0
+    np.testing.assert_allclose(float(tm._last_aux), want, rtol=1e-6)
+
+
+def test_mla_latent_cache_matches_jax():
+    """After a 20-token prefill and 4 decode steps, every layer's latent
+    cache (c_kv in the k slot, the RoPE key in the v slot) and length
+    equal the JAX package's, read through ``kv_caches_from_numpy``."""
+    jm, params, tm = _pair("deepseek-v2-lite")
+    _, tc, jc = _prefill_and_decode(jm, params, tm, _tokens(tm.cfg))
+    want = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                        device="cpu")
+    m = tm.cfg.mla
+    assert len(tc) == len(want) == tm.cfg.n_layers
+    for got, ref in zip(tc, want):
+        assert got.k.shape == (B, 64, 1, m.kv_lora_rank)
+        assert got.v.shape == (B, 64, 1, m.qk_rope_head_dim)
+        assert got.length == ref.length == S0 + 4
+        assert torch.equal(got.k, ref.k) and torch.equal(got.v, ref.v)
+
+
+@pytest.mark.parametrize("arch,s_max", [("deepseek-v2-lite", 32),
+                                        ("mixtral-8x22b", S0)])
+def test_jax_prefill_continues_in_port_decode_moe(arch, s_max):
+    """A jitted JAX prefill and two eager JAX decode steps hand their
+    caches to the port (``kv_caches_from_numpy``): DeepSeek-V2-Lite's
+    latent caches, and Mixtral's ring of ``S0`` slots whose length is
+    already past it.  The port decodes on with the JAX decode's logits
+    from the same caches."""
+    jm, params, tm = _pair(arch, seed=3)
+    toks = _tokens(tm.cfg, seed=4)
+    jc = jm.init_decode(B, s_max)
+    jc, _ = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks[:, :S0])},
+                                jc)
+    with jax.disable_jit():
+        for i in range(2):
+            jc, _ = jm.decode_step(params, jc, jnp.asarray(
+                toks[:, S0 + i:S0 + i + 1]), S0 + i)
+        tc = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                          device="cpu")
+        assert tc[1].length == S0 + 2
+        if arch == "mixtral-8x22b":
+            assert tc[1].k.shape[1] == S0 < tc[1].length     # wrapped ring
+        for i in range(2, 4):
+            tok = toks[:, S0 + i:S0 + i + 1]
+            jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
+            tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
+            np.testing.assert_allclose(_np(tl)[..., :512], _np(jl)[..., :512],
+                                       atol=2e-2, rtol=0)
+
+
+def _ring_run(prompt, steps, seed=2):
+    """The reduced Mixtral (window 64) in both packages: a prefill of
+    ``prompt`` tokens into caches of 256 slots (a 64-slot ring), then
+    ``steps`` decode steps of token 0, as tests/test_models.py:76-91.
+    Returns the (JAX, port) logits of every step and both packages'
+    caches."""
+    jm, params, tm = _pair("mixtral-8x22b", seed=seed)
+    toks = np.random.default_rng(seed).integers(
+        0, tm.cfg.vocab_size, (1, prompt)).astype(np.int32)
+    tok = np.zeros((1, 1), np.int32)
+    with jax.disable_jit():
+        jc, jl = jm.prefill(params, {"tokens": jnp.asarray(toks)},
+                            jm.init_decode(1, 256))
+        tc, tl = tm.prefill({"tokens": torch.from_numpy(toks)},
+                            tm.init_decode(1, 256))
+        pairs = [(jl, tl)]
+        for i in range(steps):
+            jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), prompt + i)
+            tc, tl = tm.decode_step(tc, torch.from_numpy(tok), prompt + i)
+            pairs.append((jl, tl))
+    return pairs, tc, jc, tm
+
+
+def _ulp_excess(got, want):
+    """How far ``got`` strays beyond one bf16 ulp of ``want`` (2^-7 of its
+    magnitude), elementwise max."""
+    got, want = _np(got), _np(want)
+    return float((np.abs(got - want) - np.abs(want) * 2 ** -7).max())
+
+
+def _assert_ring_matches(pairs, tc, jc, tm, length):
+    """Every step's logits within 2e-2 of the JAX package's and the final
+    ring caches equal (both bitwise on the CPU these tests were written
+    on)."""
+    for step, (a, b) in enumerate(pairs):
+        np.testing.assert_allclose(_np(b)[..., :512], _np(a)[..., :512],
+                                   atol=2e-2, rtol=0, err_msg=f"step {step}")
+        assert bool(torch.isfinite(b[..., :512]).all())
+    want = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                        device="cpu")
+    for got, ref in zip(tc, want):
+        assert got.k.shape[1] == tm.cfg.sliding_window == 64
+        assert got.length == ref.length == length
+        assert torch.equal(got.k, ref.k) and torch.equal(got.v, ref.v)
+
+
+def test_swa_ring_buffer_decode_matches_jax():
+    """tests/test_models.py:76-91 held against the JAX package: a 16-token
+    prompt and 80 decode steps, past the 64-token window (the ring wraps
+    at step 48); every step's logits within 2e-2 of eager JAX and the
+    ring caches equal (``_assert_ring_matches``).  The same steps
+    over a plain 96-slot cache with the window mask give the ring's
+    attention outputs, layer by layer on the same inputs, within 2e-2
+    plus one bf16 ulp."""
+    pairs, tc, jc, tm = _ring_run(16, 80)
+    _assert_ring_matches(pairs, tc, jc, tm, 96)
+    from repro_torch.models import attention
+    full = [attention.init_kv_cache(1, 96, 2, 16, False, device="cpu")
+            for _ in range(tm.cfg.n_layers)]
+    toks = np.random.default_rng(2).integers(0, 512, (1, 16))
+    full, _ = tm.prefill({"tokens": torch.from_numpy(toks)}, full)
+    ring, _ = tm.prefill({"tokens": torch.from_numpy(toks)},
+                         tm.init_decode(1, 256))
+    real, calls, excess = attention.gqa_forward, [0], []
+
+    def both(p, h, cfg, plan, *, cache, decode, **kw):
+        i = calls[0] % cfg.n_layers
+        calls[0] += 1
+        y, c = real(p, h, cfg, plan, cache=cache, decode=decode, **kw)
+        want, full[i] = real(p, h, cfg, plan, cache=full[i], decode=decode,
+                             **kw)
+        excess.append(_ulp_excess(y, want))
+        return y, c
+
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    attention.gqa_forward = both
+    try:
+        for i in range(80):
+            ring, _ = tm.decode_step(ring, tok, 16 + i)
+    finally:
+        attention.gqa_forward = real
+    assert len(excess) == 160 and max(excess) <= 2e-2
+    assert ring[0].length == full[0].length == 96
+
+
+def test_swa_ring_prefill_tail_matches_jax():
+    """A 128-token prompt at window 64: the prefill keeps its last 64 keys
+    in the ring (length 128), then 8 decode steps; logits within 2e-2 of
+    eager JAX and the ring caches equal (``_assert_ring_matches``)."""
+    pairs, tc, jc, tm = _ring_run(128, 8, seed=5)
+    _assert_ring_matches(pairs, tc, jc, tm, 136)
+
+
 # ---------------- serving ----------------
 
 def test_serve_run_on_cpu():
@@ -362,6 +567,20 @@ def test_serve_run_on_cpu():
     full = res.model.forward({"tokens": seq})
     np.testing.assert_array_equal(full[:, 15:].argmax(-1).numpy(), res.tokens)
 
+
+def test_serve_run_moe_on_cpu():
+    """``serve.run`` of the reduced DeepSeek-V2-Lite on the CPU builds the
+    model drop-free (``Plan(moe_capacity=0)``, as the JAX package's
+    ``serve.run``), and its greedy tokens are the argmax of a
+    teacher-forced forward over prompt + output."""
+    res = serve.run("deepseek-v2-lite", prompt_len=16, gen=4, batch=2, seed=5,
+                    device="cpu")
+    assert res.model.plan.moe_capacity == 0
+    assert res.tokens.shape == (2, 4)
+    assert bool(torch.isfinite(res.logits[..., :512]).all())
+    seq = torch.cat([res.prompt, torch.from_numpy(res.tokens[:, :-1])], 1)
+    full = res.model.forward({"tokens": seq})
+    np.testing.assert_array_equal(full[:, 15:].argmax(-1).numpy(), res.tokens)
 
 def test_serve_main_needs_cuda(monkeypatch):
     """The command line runs on the card; without one it raises."""
