@@ -2,7 +2,7 @@
 simulator (its controllers, streamed replay, chunk codec, checkpoints,
 device workload generator and fault-tolerant sweep orchestrator too), the
 FIGCache-KV serving path and the LM serving paths (dense; MoE with MLA;
-the sliding-window ring cache).
+the sliding-window ring cache; a VLM with the int8 KV cache; Whisper).
 
     python3 chip_smoke.py
 
@@ -203,7 +203,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    first 4 ring decode steps (every one past the ring's wrap) held layer
    by layer against an 8232-slot window-masked cache on the same inputs,
    the other 28 timed, finite logits;
-17. summary: one ``{"kernels": [...]}`` JSON line (device times from
+17. VLM and Whisper serving: Qwen2-VL-72B at full width cut to 8 of 80
+   layers with the int8 KV cache (``Plan(kv_quant=True)``), served through
+   ``serve.serve_batch`` at batch 4, 1024 zero vision embeddings before
+   3072 prompt tokens, 64 greedy tokens: 8 flash_attention launches in the
+   prefill (S 4096, H 64, Hkv 8, D 128, causal), tokens in range, finite
+   logits; a warm prefill bitwise equal to the served one whose every
+   layer's int8 codes and scales equal the CPU's ``_quant_kv`` of the same
+   bf16 K / V bit for bit; the prefill rerun with the plain version at the
+   call site (each layer's kernel output within 2e-2 plus one bf16 ulp of
+   plain); a prefill with random vision embeddings and M-RoPE's
+   ``positions3`` (a 32 x 32 grid) with finite logits other than the
+   broadcast-position prefill's; the first 4 decode steps, every layer's
+   attention through the int8-native route, the dequantized route and a
+   bf16 cache on the same inputs, every ``attend`` of the three within
+   2e-2 plus one bf16 ulp of the CPU's on the same inputs, the routes'
+   and the caches' gaps printed; prefill ms cold and warm, decode ms/step,
+   tokens/s, the cache's bytes against a bf16 cache's, peak memory; the
+   kernel at that shape timed beside plain, SDPA and the bound; then
+   ``serve.run("whisper-tiny", reduced=False)`` (4 + 4 layers, 1500
+   frames) at batch 16, prompt 128, 64 tokens: 8 flash_attention launches
+   in the prefill (4 non-causal at S 1500, 4 causal at S 128, shapes
+   recorded in a warm prefill bitwise equal to the served one), each
+   layer's kernel output within 2e-2 plus one bf16 ulp of plain, finite
+   logits; encoder ms, prefill ms, decode ms/step, tokens/s; the kernel at
+   the encoder's shape timed beside plain, SDPA and the bound;
+18. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
@@ -213,8 +238,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    of phases 4 and 9-15, counted from 0 around it, in ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
    ``tel_tax``; flash_attention's launches on each LM path, counted from
-   0 around its prefill, in ``path_launches``, and its times at MLA's
-   shape in ``mla``),
+   0 around its prefill, in ``path_launches``, and its times at MLA's,
+   Qwen2-VL's and Whisper's encoder's shapes in ``mla``, ``qwen2_vl`` and
+   ``whisper``),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -283,6 +309,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.sincosf import sincos_f32  # noqa: E402
 from repro_torch.models import Plan, build_model  # noqa: E402
+from repro_torch.models import whisper as whisper_mod  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
@@ -313,6 +340,19 @@ PAD_ARCH = "stablelm-12b"
 MLA_ARCH = "deepseek-v2-lite"
 RING_ARCH, RING_LAYERS, RING_BATCH, RING_PROMPT, RING_GEN, RING_CHECK = \
     "mixtral-8x22b", 2, 2, 8192, 32, 4
+# VLM serving: Qwen2-VL-72B (src/repro/configs/qwen2_vl_72b.py) at full
+# width cut to 8 of its 80 layers (memory: 80 layers are 135.4 GiB, 8 are
+# 17.72 GiB with both vocab tables) with the int8 KV cache, the plan the
+# JAX package's make_plan picks for the decode of a model over 30e9
+# parameters (src/repro/launch/steps.py:35-38); batch 4, its 1024 vision
+# tokens before 3072 prompt tokens (S 4096), 64 greedy tokens; the first 4
+# decode steps held layer by layer
+VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_CHECK = \
+    "qwen2-vl-72b", 8, 4, 3072, 64, 4
+VLM_GRID = 32                                   # 32 x 32 vision tokens
+# Whisper-tiny whole (src/repro/configs/whisper_tiny.py: 4 + 4 layers, its
+# 1500 audio frames), batch 16, 128-token prompts, 64 greedy tokens
+ASR_ARCH, ASR_BATCH, ASR_PROMPT, ASR_GEN = "whisper-tiny", 16, 128, 64
 
 # tests/test_obs.py's controllers
 SCHEDS = {
@@ -2915,33 +2955,12 @@ def phase_mla_flash(dev, cfg):
                   f"H = Hkv: abs {err} (bar {tol}), row-relative {rel} (bar "
                   f"{rel_tol}) at {dtype} {(B, S, H, hkv, D, causal, window)}")
             del q, k, v, got, want
-    B, S, H, hkv, D, causal, window = shape
-    q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=399, dev=dev)
-    qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    flop, n_bytes = flash_work(B, S, H, hkv, D, 2, causal, window)
-    t_ops = flop / BF16_FLOP_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    res = {"ms": graph_ms(lambda: flash_kernel.flash_attention(q, k, v),
-                          reps=3, samples=7),
-           "plain_ms": graph_ms(lambda: flash_attention_ref(q, k, v), reps=1,
-                                samples=5),
-           "library_ms": graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                  reps=3, samples=7),
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "max_abs_err": max_err, "shape": list(shape[:5])}
-    res["tflops"] = flop / res["ms"] * 1e-9
-    res["bound_share"] = res["bound_ms"] / res["ms"]
-    log(f"[mla] flash_attention at MLA's prefill B={B} S={S} H={H} Hkv={hkv} "
-        f"D={D} bf16 causal, and D {D} corners at H = Hkv (S 65, 129, 300, "
-        f"window 50), f32 and bf16: within f32 2e-5 / bf16 2e-2 of plain, "
-        f"max_abs_err={max_err:.3g}; device time (CUDA-graph replay) kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
-        f"{res['library_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}; {flop:.3e} FLOP at 989 TFLOP/s {t_ops:.4f} ms, "
-        f"{n_bytes} bytes at 3.35 TB/s {t_bytes:.4f} ms); kernel at "
-        f"{res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of the bound")
+    log(f"[mla] flash_attention at D {d} corners at H = Hkv (S 65, 129, 300, "
+        f"window 50) and MLA's prefill {shape[:5]}, f32 and bf16: within f32 "
+        f"2e-5 / bf16 2e-2 of plain, max_abs_err={max_err:.3g}")
+    res = time_flash(dev, shape[:6], 399, "[mla]")
+    res["max_abs_err"] = max(max_err, res["max_abs_err"])
+    res["shape"] = list(shape[:5])
     return res
 
 
@@ -3200,6 +3219,414 @@ def phase_ring(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: VLM serving with the int8 KV cache, and Whisper
+
+def time_flash(dev, shape, seed, tag):
+    """flash_attention at ``shape`` = (B, S, H, Hkv, D, causal) in bf16:
+    within 2e-2 of plain, then the kernel, plain and SDPA timed as device
+    time (CUDA-graph replay) beside the FLOP / byte bound; logged under
+    ``tag``."""
+    B, S, H, hkv, D, causal = shape
+    q, k, v = flash_case(B, S, H, hkv, D, torch.bfloat16, seed=seed, dev=dev)
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= 2e-2, f"flash_attention at {shape}: abs {err} (bar 2e-2)")
+    del got, want
+    qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flop, n_bytes = flash_work(B, S, H, hkv, D, 2, causal, 0)
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    res = {"shape": list(shape), "max_abs_err": err,
+           "ms": graph_ms(lambda: flash_kernel.flash_attention(
+               q, k, v, causal=causal), reps=3, samples=7),
+           "plain_ms": graph_ms(lambda: flash_attention_ref(
+               q, k, v, causal=causal), reps=1, samples=5),
+           "library_ms": graph_ms(lambda: sdpa(
+               qt, kt, vt, is_causal=causal, enable_gqa=hkv < H), reps=3,
+               samples=7),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    res["tflops"] = flop / res["ms"] * 1e-9
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    log(f"{tag} flash_attention B={B} S={S} H={H} Hkv={hkv} D={D} bf16 "
+        f"{'causal' if causal else 'non-causal'}: within 2e-2 of plain "
+        f"({err:.3g}); device time (CUDA-graph replay) kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, SDPA "
+        f"{res['library_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}; {flop:.3e} FLOP at 989 TFLOP/s {t_ops:.4f} ms, "
+        f"{n_bytes} bytes at 3.35 TB/s {t_bytes:.4f} ms); kernel at "
+        f"{res['tflops']:.1f} TFLOP/s, {res['bound_share']:.3f} of the bound")
+    return res
+
+
+def vlm_positions3(dev):
+    """Qwen2-VL's (t, h, w) streams for phase 17's prompt: the 32 x 32
+    vision grid (t 0, h the row, w the column), then the text from 32 on
+    all three streams; (3, B, S) int64."""
+    n = VLM_GRID * VLM_GRID
+    idx = torch.arange(n, device=dev)
+    text = VLM_GRID + torch.arange(VLM_PROMPT, device=dev)
+    streams = [torch.cat([v, text]) for v in
+               (torch.zeros_like(idx), idx // VLM_GRID, idx % VLM_GRID)]
+    return torch.stack(streams)[:, None].expand(3, VLM_BATCH, n + VLM_PROMPT)
+
+
+def recording_attend(errs):
+    """``attention.attend`` that also runs the same call on the CPU copies
+    of its inputs and records how far the card's output strays beyond one
+    bf16 ulp of the CPU's; returns the card's."""
+    real = attention.attend
+
+    def rec(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        cpu = {n: (x.cpu() if isinstance(x, torch.Tensor) else x)
+               for n, x in kw.items()}
+        want = real(q.cpu(), k.cpu(), v.cpu(), **cpu)
+        errs.append(ulp_excess(out.cpu(), want))
+        return out
+    return rec
+
+
+def phase_vlm(dev):
+    """Qwen2-VL-72B at full width, 8 layers, int8 KV cache: served through
+    ``serve.serve_batch`` (the entry ``serve.run`` calls), checked and
+    timed; its prefill with M-RoPE's (t, h, w) streams; then Whisper-tiny
+    whole through ``serve.run``."""
+    t_phase = time.perf_counter()
+    full = configs.get(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    plan = Plan(kv_quant=True, moe_capacity=0)
+    nv, v = cfg.n_vision_tokens, cfg.vocab_size
+    s_all = nv + VLM_PROMPT
+    s_max = s_all + VLM_GEN + 8
+    log(f"[vlm] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"D={cfg.hd} (QKV bias, M-RoPE sections {cfg.mrope_sections}), d_ff "
+        f"{cfg.d_ff}, vocab {v}; int8 KV cache; batch {VLM_BATCH}, {nv} "
+        f"vision + {VLM_PROMPT} prompt tokens, {VLM_GEN} greedy tokens into "
+        f"{s_max} cache slots; random weights from seed 0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, plan, device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    model.init_params(rng)
+    prompt = torch.randint(0, v, (VLM_BATCH, VLM_PROMPT), generator=rng,
+                           device=dev)
+    batch = {"tokens": prompt, "vision_embeds": torch.zeros(
+        (VLM_BATCH, nv, cfg.d_model), dtype=torch.bfloat16, device=dev)}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    flash_kernel.COUNTER.launches = 0
+    toks, served, logits, t = serve.serve_batch(model, batch, VLM_GEN)
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(launches == cfg.n_layers, f"{VLM_ARCH}: flash_attention launched "
+          f"{launches} times in one prefill, expected {cfg.n_layers}")
+    check(toks.shape == (VLM_BATCH, VLM_GEN) and 0 <= toks.min()
+          and toks.max() < v, f"{VLM_ARCH}: tokens {toks.shape} out of range")
+    for name, lg in (("prefill", served), ("decode", logits)):
+        check(bool(torch.isfinite(lg[..., :v]).all()),
+              f"{VLM_ARCH}: {name} logits not finite")
+    caches = model.init_decode(VLM_BATCH, s_max)
+    c0 = caches[0]
+    int8_bytes = sum(x.numel() * x.element_size() for c in caches
+                     for x in c[:4])
+    bf16_bytes = 2 * cfg.n_layers * c0.k.numel() * 2
+    log(f"[vlm] launches flash_attention={launches} (one per layer, B "
+        f"{VLM_BATCH} S {s_all} H {cfg.n_heads} Hkv {cfg.n_kv_heads} D "
+        f"{cfg.hd}); prefill {t['prefill_s'] * 1e3:.1f} ms (first, cold); "
+        f"decode {t['ms_per_step']:.3f} ms/step over {VLM_GEN} steps "
+        f"({t['tok_s']:.1f} tokens/s); KV cache {int8_bytes} bytes int8 + "
+        f"scales against {bf16_bytes} in bf16 ({int8_bytes / bf16_bytes:.4f}"
+        f"x); peak device memory {peak / 2**30:.2f} GiB (weights "
+        f"{weights / 2**30:.2f} GiB)")
+
+    # a warm prefill into fresh int8 caches, recording each layer's bf16
+    # K / V: its logits equal the served prefill's, and each cache's codes
+    # and scales equal the CPU's _quant_kv of the same K / V, bit for bit
+    kv_in = []
+    real_update = attention.cache_update
+
+    def rec_update(cache, k_new, v_new, pos):
+        kv_in.append((k_new, v_new))
+        return real_update(cache, k_new, v_new, pos)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(attention, cache_update=rec_update):
+        caches, warm = model.prefill(batch, caches)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(torch.equal(warm, served), f"{VLM_ARCH}: two prefills differ")
+    check(len(kv_in) == cfg.n_layers, f"{VLM_ARCH}: {len(kv_in)} cache "
+          "writes in a prefill")
+    for i, ((k_new, v_new), c) in enumerate(zip(kv_in, caches)):
+        for x, codes, scales in ((k_new, c.k, c.k_scale),
+                                 (v_new, c.v, c.v_scale)):
+            q_cpu, s_cpu = attention._quant_kv(x.cpu())
+            check(torch.equal(codes[:, :s_all].cpu(), q_cpu)
+                  and torch.equal(scales[:, :s_all].cpu().view(torch.int32),
+                                  s_cpu.view(torch.int32)),
+                  f"{VLM_ARCH}: layer {i}'s int8 codes or scales differ from "
+                  f"the CPU's _quant_kv of the same K / V")
+    del kv_in
+    log(f"[vlm] warm prefill {t_warm * 1e3:.1f} ms, bitwise equal to the "
+        f"served one; every layer's int8 codes and f32 scales ({s_all} "
+        f"tokens x {cfg.n_kv_heads} heads, K and V) bitwise equal to the "
+        f"CPU's _quant_kv of the same bf16 K / V")
+
+    # the prefill rerun with the plain version at the call site: each
+    # layer's kernel output on its own inputs (q scaled in bf16, scale 1)
+    layer_err, layer_excess = [], []
+    with patched(attention, mha=checked_mha(attention.mha, layer_err,
+                                            layer_excess)):
+        _, plain = model.prefill(batch, model.init_decode(VLM_BATCH, s_all))
+    check(len(layer_err) == cfg.n_layers and max(layer_excess) <= 2e-2,
+          f"{VLM_ARCH}: kernel vs plain on the layers' own inputs beyond one "
+          f"bf16 ulp: {layer_excess} (max abs {layer_err})")
+    log(f"[vlm] prefill rerun with the plain version patched in: each "
+        f"layer's kernel output vs plain on its own inputs max abs "
+        f"{max(layer_err):.4g}, beyond one bf16 ulp {max(layer_excess):.4g} "
+        f"over {len(layer_err)} layers (held to 2e-2); max logit difference "
+        f"{float((warm - plain).abs().max()):.4g} (not bounded)")
+    del plain
+
+    # M-RoPE's streams: random vision embeddings, prefilled with the 32 x
+    # 32 grid's positions3 and with broadcast positions
+    vis = torch.randn((VLM_BATCH, nv, cfg.d_model), generator=rng,
+                      device=dev).to(torch.bfloat16)
+    grid = dict(batch, vision_embeds=vis, positions3=vlm_positions3(dev))
+    _, lg3 = model.prefill(grid, model.init_decode(VLM_BATCH, s_all))
+    _, lg1 = model.prefill(dict(batch, vision_embeds=vis),
+                           model.init_decode(VLM_BATCH, s_all))
+    moved = float((lg3[..., :v] - lg1[..., :v]).abs().max())
+    check(bool(torch.isfinite(lg3[..., :v]).all()) and moved > 0,
+          f"{VLM_ARCH}: the positions3 prefill's logits are not finite or "
+          f"equal the broadcast-position prefill's")
+    log(f"[vlm] prefill with random vision embeddings and positions3 (a "
+        f"{VLM_GRID} x {VLM_GRID} grid, text from {VLM_GRID}): finite "
+        f"logits, max {moved:.4g} from the broadcast-position prefill's")
+    del lg3, lg1, vis, grid
+
+    # the first decode steps from the warm prefill's int8 caches, each
+    # layer's attention output beside a bf16 cache prefilled from the same
+    # prompt; every attend of both held against the CPU's attend on the
+    # same inputs
+    hkv = plan.padded_kv_heads(cfg.n_kv_heads)
+    bf16 = [attention.init_kv_cache(VLM_BATCH, s_max, hkv, cfg.hd, False,
+                                    device=dev) for _ in range(cfg.n_layers)]
+    bf16, _ = model.prefill(batch, bf16)
+    real, calls, gaps, cpu_excess = attention.gqa_forward, [0], [], []
+
+    def both(p, h, cfg_, plan_, *, cache, decode, **kw):
+        i = calls[0] % cfg_.n_layers
+        calls[0] += 1
+        y, c = real(p, h, cfg_, plan_, cache=cache, decode=decode, **kw)
+        y_bf, bf16[i] = real(p, h, cfg_, plan_, cache=bf16[i],
+                             decode=decode, **kw)
+        gaps.append((ulp_excess(y, y_bf), float(
+            (y.float() - y_bf.float()).norm() / y_bf.float().norm())))
+        return y, c
+
+    tok = served[:, -1].argmax(-1)[:, None]
+    with patched(attention, gqa_forward=both,
+                 attend=recording_attend(cpu_excess)):
+        for i in range(VLM_CHECK):
+            caches, lg = model.decode_step(caches, tok, s_all + i)
+            check(bool(torch.isfinite(lg[..., :v]).all()),
+                  f"{VLM_ARCH}: decode logits not finite")
+            tok = lg[:, -1].argmax(-1)[:, None]
+    n = VLM_CHECK * cfg.n_layers
+    check(len(gaps) == n and len(cpu_excess) == 2 * n
+          and max(cpu_excess) <= 2e-2, f"{VLM_ARCH}: decode attention on the "
+          f"card vs the CPU beyond 2e-2 plus one bf16 ulp: {cpu_excess}")
+    g = list(zip(*gaps))
+    log(f"[vlm] {VLM_CHECK} decode steps x {cfg.n_layers} layers from the "
+        f"int8 caches: every attend (int8 and bf16 cache; "
+        f"{len(cpu_excess)} calls) on the card within "
+        f"{max(cpu_excess):.4g} beyond one bf16 ulp of the CPU's attend on "
+        f"the same inputs (held to 2e-2); int8 vs bf16 cache beyond one bf16 "
+        f"ulp {max(g[0]):.4g} (relative L2 {max(g[1]):.4g}; not bounded)")
+    del bf16
+
+    # one more int8 decode step reads nothing back to the host (sync-debug
+    # "error"); then where 4 steps' time goes
+    pos = s_all + VLM_CHECK
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        caches, _ = model.decode_step(caches, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[vlm] one int8 decode step under sync-debug mode 'error': no "
+        f"synchronising call")
+
+    def replay():
+        c = caches
+        for i in range(4):
+            c, _ = model.decode_step(c, tok, pos + 1 + i)
+        torch.cuda.synchronize()
+
+    prof = profile_replay(f"{VLM_ARCH} int8 decode B={VLM_BATCH}", replay, 4)
+    del caches, model
+    torch.cuda.empty_cache()
+    flash = time_flash(dev, (VLM_BATCH, s_all, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, True), 400, "[vlm]")
+    out = {"launches": launches, "prefill_ms": t["prefill_s"] * 1e3,
+           "warm_prefill_ms": t_warm * 1e3, "ms_per_step": t["ms_per_step"],
+           "tok_s": t["tok_s"], "peak_gib": peak / 2**30,
+           "weights_gib": weights / 2**30,
+           "cache_ratio": int8_bytes / bf16_bytes, "bf16_gap": max(g[0]),
+           "profile": prof, "flash": flash}
+    out["whisper"] = phase_whisper(dev)
+    log(f"[vlm] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_whisper(dev):
+    """Whisper-tiny whole through ``serve.run(reduced=False)``: 4 encoder
+    layers non-causal at S 1500 and 4 decoder layers causal at the prompt's
+    length, each a flash_attention launch; each layer's kernel output
+    against plain, a warm prefill bitwise equal to the served one; a
+    decode step with no synchronising call; the encoder, its GELU, prefill
+    and decode timed, the encoder and decode profiled."""
+    flash_kernel.COUNTER.launches = 0
+    res = serve.run(ASR_ARCH, reduced=False, prompt_len=ASR_PROMPT,
+                    gen=ASR_GEN, batch=ASR_BATCH, seed=0, device=dev)
+    launches = flash_kernel.COUNTER.launches
+    cfg = res.model.cfg
+    v = cfg.vocab_size
+    n_attn = cfg.encoder_layers + cfg.n_layers
+    check(launches == n_attn, f"{ASR_ARCH}: flash_attention launched "
+          f"{launches} times in one prefill, expected {n_attn}")
+    check(res.tokens.shape == (ASR_BATCH, ASR_GEN) and 0 <= res.tokens.min()
+          and res.tokens.max() < v and bool(torch.isfinite(
+              res.logits[..., :v]).all()) and bool(torch.isfinite(
+                  res.prefill_logits[..., :v]).all()),
+          f"{ASR_ARCH}: tokens out of range or logits not finite")
+    model = res.model
+    s_max = ASR_PROMPT + ASR_GEN + 8
+    # a warm prefill, the shape and mask of every mha call recorded
+    shapes = []
+    real_mha = attention.mha
+
+    def rec_mha(q, k, v_, *, causal=True, window=0, scale=None):
+        shapes.append((tuple(q.shape), causal))
+        return real_mha(q, k, v_, causal=causal, window=window, scale=scale)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(attention, mha=rec_mha):
+        _, warm = model.prefill(res.batch, model.init_decode(ASR_BATCH,
+                                                             s_max))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    d_enc = (ASR_BATCH, cfg.n_audio_frames, cfg.n_heads, cfg.hd)
+    d_dec = (ASR_BATCH, ASR_PROMPT, cfg.n_heads, cfg.hd)
+    check(shapes == [(d_enc, False)] * cfg.encoder_layers +
+          [(d_dec, True)] * cfg.n_layers, f"{ASR_ARCH}: prefill attention "
+          f"calls {shapes}")
+    check(torch.equal(warm, res.prefill_logits), f"{ASR_ARCH}: two prefills "
+          "differ")
+    layer_err, layer_excess = [], []
+    with patched(attention, mha=checked_mha(real_mha, layer_err,
+                                            layer_excess)):
+        _, plain = model.prefill(res.batch, model.init_decode(ASR_BATCH,
+                                                              s_max))
+    check(len(layer_err) == n_attn and max(layer_excess) <= 2e-2,
+          f"{ASR_ARCH}: kernel vs plain on the layers' own inputs beyond one "
+          f"bf16 ulp: {layer_excess} (max abs {layer_err})")
+    audio = res.batch["audio_embeds"]
+    for _ in range(2):
+        whisper_mod.encode(model, audio, cfg, model.plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        whisper_mod.encode(model, audio, cfg, model.plan)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    def encode_once():
+        whisper_mod.encode(model, audio, cfg, model.plan)
+        torch.cuda.synchronize()
+
+    enc_prof = profile_replay(f"{ASR_ARCH} encoder B={ASR_BATCH}",
+                              encode_once, 1)
+    gelu = whisper_gelu(dev, cfg, enc_ms)
+
+    # a decode step reads nothing back to the host (sync-debug "error");
+    # then where 4 steps' time goes
+    state, _ = model.prefill(res.batch, model.init_decode(ASR_BATCH, s_max))
+    tok = torch.from_numpy(res.tokens[:, :1]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(state, tok, ASR_PROMPT)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[whisper] one decode step under sync-debug mode 'error': no "
+        f"synchronising call")
+
+    def replay():
+        c = state
+        for i in range(4):
+            c, _ = model.decode_step(c, tok, ASR_PROMPT + i)
+        torch.cuda.synchronize()
+
+    dec_prof = profile_replay(f"{ASR_ARCH} decode B={ASR_BATCH}", replay, 4)
+    t = res.timings
+    log(f"[whisper] {cfg.name} whole ({cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, H {cfg.n_heads}, D {cfg.hd}, "
+        f"{cfg.n_audio_frames} frames, vocab {v}): batch {ASR_BATCH}, prompt "
+        f"{ASR_PROMPT}, {ASR_GEN} greedy tokens; flash_attention launches "
+        f"{launches} ({cfg.encoder_layers} non-causal at S "
+        f"{cfg.n_audio_frames}, {cfg.n_layers} causal at S {ASR_PROMPT}); "
+        f"each layer's kernel output vs plain on its own inputs max abs "
+        f"{max(layer_err):.4g}, beyond one bf16 ulp {max(layer_excess):.4g} "
+        f"(held to 2e-2); max logit difference "
+        f"{float((warm - plain).abs().max()):.4g} (not bounded); encoder "
+        f"{enc_ms:.2f} ms (warm, synchronised, mean of 5); prefill "
+        f"{t['prefill_s'] * 1e3:.1f} ms first, {t_warm * 1e3:.1f} warm, "
+        f"bitwise equal; decode {t['ms_per_step']:.3f} ms/step "
+        f"({t['tok_s']:.1f} tokens/s)")
+    del res, model, warm, plain, state
+    torch.cuda.empty_cache()
+    flash = time_flash(dev, d_enc[:3] + (cfg.n_heads, cfg.hd, False), 401,
+                       "[whisper]")
+    return {"launches": launches, "encoder_ms": enc_ms,
+            "prefill_ms": t["prefill_s"] * 1e3, "warm_prefill_ms": t_warm * 1e3,
+            "ms_per_step": t["ms_per_step"], "tok_s": t["tok_s"],
+            "encoder_profile": enc_prof, "decode_profile": dec_prof,
+            "gelu": gelu, "flash": flash}
+
+
+def whisper_gelu(dev, cfg, enc_ms):
+    """The encoder MLP's GELU alone at its shape (B, frames, d_ff) f32:
+    ``layers.gelu_tanh`` (XLA's tanh emulated in float64) bitwise equal on
+    the card and the CPU on the first batch row, then timed as device time
+    beside torch's ``gelu(approximate="tanh")``; its share of the encoder
+    (one GELU per encoder layer)."""
+    gen = torch.Generator(device=dev).manual_seed(402)
+    h = torch.randn((ASR_BATCH, cfg.n_audio_frames, cfg.d_ff), generator=gen,
+                    device=dev)
+    check(torch.equal(layers_mod.gelu_tanh(h[0]).cpu(),
+                      layers_mod.gelu_tanh(h[0].cpu())),
+          f"{ASR_ARCH}: gelu_tanh on the card differs from the CPU's")
+    ms = graph_ms(lambda: layers_mod.gelu_tanh(h), reps=3, samples=7)
+    lib = graph_ms(lambda: torch.nn.functional.gelu(h, approximate="tanh"),
+                   reps=3, samples=7)
+    share = cfg.encoder_layers * ms / enc_ms
+    log(f"[whisper] encoder GELU alone at ({ASR_BATCH}, "
+        f"{cfg.n_audio_frames}, {cfg.d_ff}) f32: gelu_tanh bitwise equal on "
+        f"the card and the CPU (first row); device time (CUDA-graph replay) "
+        f"{ms:.4f} ms, torch gelu(approximate='tanh') {lib:.4f} ms; "
+        f"{cfg.encoder_layers} of them are {share:.4f} of the encoder's "
+        f"{enc_ms:.2f} ms")
+    return {"ms": ms, "library_ms": lib, "encoder_share": share}
+
+
+# ---------------------------------------------------------------------------
 # phase 15: sanitizer and flight recorder
 
 def stacked_fig8(per_channel):
@@ -3381,6 +3808,7 @@ def main():
     lm_launches = phase_lm(dev)
     phase_lm_padded(dev)
     mla = phase_lm_moe(dev)
+    vlm = phase_vlm(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -3462,8 +3890,18 @@ def main():
         # the kernel at MLA's shape (D 192, H = Hkv = 16)
         "path_launches": {LM_ARCH: lm_launches, MLA_ARCH: mla["launches"],
                           f"{RING_ARCH}-{RING_LAYERS}l":
-                              mla["ring"]["launches"]},
+                              mla["ring"]["launches"],
+                          "qwen2_vl": vlm["launches"],
+                          "whisper": vlm["whisper"]["launches"]},
         "mla": {k: mla["flash"][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err")},
+        # the kernel at Qwen2-VL's prefill (GQA 64 / 8, causal) and at
+        # Whisper's encoder (non-causal, S 1500, D 64)
+        "qwen2_vl": {k: vlm["flash"][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err")},
+        "whisper": {k: vlm["whisper"]["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")}})
     for path, n in rows[-1]["path_launches"].items():

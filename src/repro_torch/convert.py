@@ -11,7 +11,7 @@ imports the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Mapping, Sequence, Tuple
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from repro_torch.core import fts as fts_lib
 from repro_torch.core.timing import MechParams
 from repro_torch.device import resolve_device
 from repro_torch.figkv import EmbedCache, FigKVState
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.attention import KVCache
 
 # unbatched rank and dtype of every SimState leaf, in the JAX package's
@@ -163,14 +163,35 @@ def _flat(tree, prefix: str) -> Iterator[Tuple[str, object]]:
         yield prefix[:-1], tree
 
 
+def _stacked(tree, prefix: str, count: int, dev
+             ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """A stack of ``count`` layers whose leaves carry a leading layer axis
+    -> one ``{prefix}.{i}.{path}`` entry per layer and leaf."""
+    for path, x in _flat(tree, ""):
+        a = np.asarray(x)
+        for i in range(count):
+            yield f"{prefix}.{i}.{path}", _tensor(a[i], dev)
+
+
 def model_params_from_numpy(cfg, tree: Mapping, device=None
                             ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``Model`` params as numpy arrays (``jax.tree.map(
     np.asarray, params)``: nested dicts and lists, scan groups stacked on a
     leading layer axis) -> the state of the port's ``Model`` for ``cfg``
-    (``model.load_state_dict(...)``), one entry per layer."""
+    (``model.load_state_dict(...)``), one entry per layer.  Whisper's tree
+    is ``enc`` / ``dec`` (each stacked), ``enc_ln``, ``dec_ln``,
+    ``tok_embed`` and ``pos_embed``."""
     dev = resolve_device(device)
     transformer.check_ported(cfg)
+    if cfg.is_encdec:
+        out = dict(_stacked(tree["enc"], "enc", cfg.encoder_layers, dev))
+        out.update(_stacked(tree["dec"], "dec", cfg.n_layers, dev))
+        for name in ("enc_ln", "dec_ln"):
+            out.update((f"{name}.{k}", _tensor(x, dev))
+                       for k, x in tree[name].items())
+        for name in ("tok_embed", "pos_embed"):
+            out[name] = _tensor(tree[name], dev)
+        return out
     out = {"tok_embed": _tensor(tree["tok_embed"], dev),
            "stack.ln_f": _tensor(tree["stack"]["ln_f"], dev)}
     if "lm_head" in tree:
@@ -183,25 +204,35 @@ def model_params_from_numpy(cfg, tree: Mapping, device=None
     return out
 
 
-def kv_caches_from_numpy(cfg, tree: Sequence, device=None) -> List[KVCache]:
+def _kv_cache(c, i, dev) -> KVCache:
+    """One layer's ``KVCache`` from a JAX KVCache tuple of numpy arrays,
+    its leaves indexed at ``i`` on a stacked group's layer axis (or
+    taken whole when ``i`` is None); an int8 cache's scales come along."""
+    def sel(a):
+        a = np.asarray(a)
+        return a if i is None else a[i]
+    k, v, k_scale, v_scale, length = c
+    scales = (None, None) if k_scale is None else \
+        (_tensor(sel(k_scale), dev), _tensor(sel(v_scale), dev))
+    return KVCache(_tensor(sel(k), dev), _tensor(sel(v), dev), *scales,
+                   length=int(sel(length)))
+
+
+def kv_caches_from_numpy(cfg, tree: Sequence, device=None):
     """The JAX package's decode caches as numpy arrays (``jax.tree.map(
     np.asarray, caches)``: one list per scan group of KVCache tuples
     ``(k, v, k_scale, v_scale, length)``) -> the port's per-layer caches,
-    so a JAX prefill can continue in the port's decode.  An MLA layer's
-    latent cache (c_kv in k, the RoPE key in v) and a sliding-window ring
-    (its length past its slots) carry over as they are."""
+    so a JAX prefill can continue in the port's decode.  An int8 cache
+    (codes and f32 scales), an MLA layer's latent cache (c_kv in k, the
+    RoPE key in v) and a sliding-window ring (its length past its slots)
+    carry over as they are.  Whisper's ``(caches, (cross_k, cross_v))``,
+    each stacked over the decoder layers, becomes a ``WhisperCache``."""
     dev = resolve_device(device)
     transformer.check_ported(cfg)
-    caches = []
-    for c, i in _layers(cfg, tree):
-        k, v, k_scale, _, length = c
-        if k_scale is not None:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
-
-        def sel(a):
-            a = np.asarray(a)
-            return a if i is None else a[i]
-        caches.append(KVCache(k=_tensor(sel(k), dev), v=_tensor(sel(v), dev),
-                              k_scale=None, v_scale=None,
-                              length=int(sel(length))))
-    return caches
+    if cfg.is_encdec:
+        caches, (ck, cv) = tree
+        cross = tuple([_tensor(np.asarray(a)[i], dev)
+                       for i in range(cfg.n_layers)] for a in (ck, cv))
+        return whisper.WhisperCache(
+            [_kv_cache(caches, i, dev) for i in range(cfg.n_layers)], cross)
+    return [_kv_cache(c, i, dev) for c, i in _layers(cfg, tree)]

@@ -304,3 +304,38 @@ def pow_f32(x: torch.Tensor, y) -> torch.Tensor:
         | ~torch.isfinite(y) | (torch.abs(ylogx) >= 126.0)
     return torch.where(outside, torch.pow(x.double(), y.double()).float(),
                        out)
+
+
+# ---------------------------------------------------------------------------
+# tanh (XLA's f32 tanh, with the FMA clamp)
+
+_TANH_CLAMP = _f32(0x401FFEC880000000)          # 7.99881172: tanh is 1.0
+_TANH_SMALL = _f32(0x3F3A36E2E0000000)          # 0.0004: tanh(x) = x
+_TANH_NUM = tuple(map(_f32, (
+    0xBCB3E4B800000000, 0x3D4C266FC0000000, 0xBDD7A6FFE0000000,
+    0x3E6B800820000000, 0x3EEF286940000000, 0x3F44E1BDA0000000,
+    0x3F740B3B80000000)))
+_TANH_DEN = tuple(map(_f32, (
+    0x3EB41A7B00000000, 0x3F1F12BAC0000000, 0x3F629540A0000000,
+    0x3F740B3BA0000000)))
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.tanh`` of an f32 tensor as XLA's CPU build computes it (its
+    elemental emitter's ``EmitFastTanh``, FMA variant): ``x`` clamped to
+    +-7.99881172, ``x * num(x^2) / den(x^2)`` with both Horner chains fused
+    (degree 6 and 3 in ``x^2``), ``x`` itself below 0.0004 in magnitude and
+    ``copysign(1, x)`` from 20 on."""
+    xc = torch.where(x < -_TANH_CLAMP, torch.full_like(x, -_TANH_CLAMP), x)
+    xc = torch.where(xc > _TANH_CLAMP, torch.full_like(x, _TANH_CLAMP), xc)
+    z = xc * xc
+    num = fma_f32(z, _TANH_NUM[0], _TANH_NUM[1])
+    for c in _TANH_NUM[2:]:
+        num = fma_f32(z, num, c)
+    den = fma_f32(z, _TANH_DEN[0], _TANH_DEN[1])
+    for c in _TANH_DEN[2:]:
+        den = fma_f32(z, den, c)
+    out = (xc * num) / den
+    ax = torch.abs(x)
+    out = torch.where(ax < _TANH_SMALL, x, out)
+    return torch.where(ax >= 20.0, torch.copysign(torch.ones_like(x), x), out)

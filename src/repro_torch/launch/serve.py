@@ -5,8 +5,11 @@ a whole model, with optional FIGCache-KV (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --reduced --prompt-len 64 --gen 32 --batch 4 [--figkv]
 
-The standard path uses the exact KV cache; every layer's prefill attention
-runs the flash-attention kernel on the card.  ``--figkv`` also exercises
+The standard path uses the exact KV cache (int8 under ``Plan(kv_quant=
+True)``); every layer's prefill attention runs the flash-attention kernel
+on the card.  A VLM (Qwen2-VL) is served with a zero vision prefix of
+``n_vision_tokens`` before each prompt, Whisper with random frame
+embeddings for its encoder, as the JAX package serves them.  ``--figkv`` also exercises
 the paper's segment cache on one synthetic layer (``demo_figkv``).  As in
 the JAX package, ``--reduced`` is on by default and the command line
 cannot turn it off; ``run(arch, reduced=False)`` serves the full width.
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,33 +46,35 @@ def _sync(dev: torch.device):
 class ServeRun(NamedTuple):
     tokens: np.ndarray          # (batch, gen) greedy tokens
     prompt: torch.Tensor        # (batch, prompt_len) the random prompt
+    batch: Dict[str, torch.Tensor]  # the prefill's input (prompt, vision
+                                    # prefix or audio frames)
     prefill_logits: torch.Tensor  # (batch, 1, Vp) f32, last prompt position
     logits: torch.Tensor        # (batch, 1, Vp) f32, the last decode step
     timings: Dict[str, float]   # prefill_s, decode_s, ms_per_step, tok_s
     model: Model
 
 
-def run(arch: str, *, reduced: bool = True, prompt_len: int = 64,
-        gen: int = 32, batch: int = 4, figkv: bool = False, seed: int = 0,
-        device=None) -> ServeRun:
-    """Build ``arch`` (its reduced config unless ``reduced=False``) with
-    random weights from ``seed``, prefill ``batch`` random prompts of
-    ``prompt_len`` tokens into an exact KV cache of ``prompt_len + gen +
-    8`` slots, then decode ``gen`` tokens greedily at positions
-    ``prompt_len + i``.  Weights and prompts come from one generator on
-    the device.  MoE models run drop-free up to 8192 assignments
-    (``Plan(moe_capacity=0)``), as the JAX package serves them."""
-    dev = resolve_device(device)
-    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
-    model = build_model(cfg, Plan(moe_capacity=0), device=dev)
-    rng = torch.Generator(device=dev).manual_seed(seed)
-    model.init_params(rng)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                           generator=rng, device=dev)
-    caches = model.init_decode(batch, prompt_len + gen + 8)
+def serve_batch(model: Model, batch_in: Dict[str, torch.Tensor],
+                gen: int) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor,
+                                   Dict[str, float]]:
+    """Prefill ``batch_in`` into an exact cache, then decode ``gen`` tokens
+    greedily -> (tokens (B, gen), prefill logits, last logits, timings).
+
+    A VLM's vision prefix of ``Nv`` embeddings sits before the prompt's
+    ``S`` tokens, so decode runs at positions ``S + Nv + i`` and the cache
+    holds ``S + Nv + gen + 8`` slots.  (The JAX package sizes it ``S + gen +
+    8``: its decode overruns the cache once ``Nv`` exceeds 8, and its
+    prefill's write is larger than the cache at Qwen2-VL's 1024 vision
+    tokens.)"""
+    dev = model.device
+    prompt = batch_in["tokens"]
+    b, s = prompt.shape
+    nv = batch_in["vision_embeds"].shape[1] if "vision_embeds" in batch_in \
+        else 0
+    caches = model.init_decode(b, s + nv + gen + 8)
     _sync(dev)
     t0 = time.perf_counter()
-    caches, logits = model.prefill({"tokens": prompt}, caches)
+    caches, logits = model.prefill(batch_in, caches)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -79,25 +84,58 @@ def run(arch: str, *, reduced: bool = True, prompt_len: int = 64,
     tok = logits[:, -1].argmax(-1)[:, None]
     for i in range(gen):
         out_tokens.append(tok)
-        caches, logits = model.decode_step(caches, tok, prompt_len + i)
+        caches, logits = model.decode_step(caches, tok, s + nv + i)
         tok = logits[:, -1].argmax(-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
     toks_out = torch.cat(out_tokens, 1).cpu().numpy() if gen else \
-        np.zeros((batch, 0), np.int64)
-    tok_s = batch * gen / t_decode if t_decode > 0 else 0.0
+        np.zeros((b, 0), np.int64)
+    tok_s = b * gen / t_decode if t_decode > 0 else 0.0
+    return toks_out, prefill_logits, logits, {
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "ms_per_step": t_decode / max(gen, 1) * 1e3, "tok_s": tok_s}
+
+
+def run(arch: str, *, reduced: bool = True, prompt_len: int = 64,
+        gen: int = 32, batch: int = 4, figkv: bool = False, seed: int = 0,
+        device=None) -> ServeRun:
+    """Build ``arch`` (its reduced config unless ``reduced=False``) with
+    random weights from ``seed``, prefill ``batch`` random prompts of
+    ``prompt_len`` tokens into an exact KV cache, then decode ``gen``
+    tokens greedily (``serve_batch``).  A VLM's prompts follow
+    ``n_vision_tokens`` zero embeddings; Whisper's encoder reads
+    ``n_audio_frames`` frame embeddings drawn N(0, 1) in bf16, times 0.1.
+    Weights, prompts and frames come from one generator on the device, in
+    that order.  MoE models run drop-free up to 8192 assignments
+    (``Plan(moe_capacity=0)``), as the JAX package serves them."""
+    dev = resolve_device(device)
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    model = build_model(cfg, Plan(moe_capacity=0), device=dev)
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    model.init_params(rng)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=rng, device=dev)
+    batch_in = {"tokens": prompt}
+    if cfg.family == "vlm":
+        batch_in["vision_embeds"] = torch.zeros(
+            (batch, cfg.n_vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
+    if cfg.is_encdec:
+        batch_in["audio_embeds"] = torch.randn(
+            (batch, cfg.n_audio_frames, cfg.d_model), generator=rng,
+            dtype=torch.bfloat16, device=dev) * 0.1
+    toks_out, prefill_logits, logits, timings = serve_batch(model, batch_in,
+                                                            gen)
     print(f"[serve] {arch}: prefill {prompt_len} toks in "
-          f"{t_prefill * 1e3:.1f}ms; decoded {gen} x {batch} in "
-          f"{t_decode * 1e3:.1f}ms ({tok_s:.1f} tok/s)", flush=True)
+          f"{timings['prefill_s'] * 1e3:.1f}ms; decoded {gen} x {batch} in "
+          f"{timings['decode_s'] * 1e3:.1f}ms ({timings['tok_s']:.1f} tok/s)",
+          flush=True)
     if figkv and not cfg.attn_free and cfg.figkv is not None:
         demo_figkv(cfg, torch.Generator(device=dev).manual_seed(seed),
                    prompt_len, gen, batch, device=dev)
-    return ServeRun(tokens=toks_out, prompt=prompt,
+    return ServeRun(tokens=toks_out, prompt=prompt, batch=batch_in,
                     prefill_logits=prefill_logits, logits=logits,
-                    timings={"prefill_s": t_prefill, "decode_s": t_decode,
-                             "ms_per_step": t_decode / max(gen, 1) * 1e3,
-                             "tok_s": tok_s},
-                    model=model)
+                    timings=timings, model=model)
 
 
 def demo_figkv(cfg: ModelConfig, generator: torch.Generator,

@@ -1,22 +1,26 @@
 """Attention for the LM stack: GQA / MQA with RoPE, DeepSeek-V2's
-Multi-head Latent Attention (MLA), the prefill through the flash-attention
-kernel, the KV cache (a ring for sliding-window models) and the decode
-path.
+Multi-head Latent Attention (MLA), cross-attention over an encoder's K/V
+(Whisper), the prefill through the flash-attention kernel, the KV cache
+(bf16 or int8, a ring for sliding-window models) and the decode path.
 
 The port's counterpart of ``repro.models.attention``.  Prefill runs
 ``kernels.flash_attention.ops.mha`` (the Hopper kernel on the card, its
-plain version on the CPU), which reads KV head ``h // (H // Hkv)`` and
-never repeats K/V.  Decode runs ``attend``, the plain chunked online
-softmax of the reference, with GQA groups folded into the query axis.
+plain version on the CPU) through ``prefill_mha``, which scales q by
+D^-0.5 in q's dtype as the reference's ``attend`` does; the kernel reads
+KV head ``h // (H // Hkv)`` and never repeats K/V.  Decode and
+cross-attention (whose queries and keys differ in length) run ``attend``,
+the plain chunked online softmax of the reference, with GQA groups folded
+into the query axis.
 
 A sliding-window prefill runs the kernel's window mask; the reference's
 ``banded_attend`` is only a faster form of the same function.  A
 sliding-window model's cache holds the last ``window`` tokens as a ring
-(slot ``pos % window``).  MLA caches the latent ``c_kv`` and the shared
-RoPE key, and re-expands K and V from them at every decode step, as the
-reference does.  Not ported yet (each raises ``NotImplementedError``;
-ROADMAP.md Queue 1): the int8 KV cache (``plan.kv_quant``) and
-cross-attention (``cross_kv``).
+(slot ``pos % window``).  The int8 cache (``Plan.kv_quant``) keeps codes
+and per-(token, head) f32 scales; its decode hands the codes to ``attend``,
+which dequantizes them chunk by chunk (the reference's default route).
+MLA caches the latent ``c_kv`` and the shared RoPE key in bf16 (under
+``kv_quant`` too, as the reference), and re-expands K and V from them at
+every decode step.
 """
 from __future__ import annotations
 
@@ -78,7 +82,9 @@ def head_mask(cfg: ModelConfig, plan: Plan,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int = 0, q_offset: int = 0,
-           kv_len: Optional[int] = None, chunk: int = 1024) -> torch.Tensor:
+           kv_len: Optional[int] = None, chunk: int = 1024,
+           k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D); k/v (B, Skv, H, D) (kv heads pre-repeated or
     folded) -> (B, Sq, H, D).
 
@@ -87,7 +93,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked entries; ``q_offset`` is the absolute position of q[0],
     ``kv_len`` masks the valid cache prefix, ``window`` > 0 the sliding
     window.  The last chunk is cut short instead of zero-padded: the padded
-    keys weigh exactly 0 in the reference."""
+    keys weigh exactly 0 in the reference.  With ``k_scale`` / ``v_scale``
+    (B, Skv, H) f32, k / v are int8 codes, dequantized chunk by chunk
+    (codes times scales in f32): the int8-native mode."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     qf = (q * torch.tensor(d ** -0.5, dtype=q.dtype)).float().transpose(1, 2)
@@ -97,8 +105,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     for c0 in range(0, skv, chunk):
         c1 = min(skv, c0 + chunk)
-        kb = k[:, c0:c1].float().transpose(1, 2)          # (B, H, c, D)
-        vb = v[:, c0:c1].float().transpose(1, 2)
+        kb, vb = k[:, c0:c1].float(), v[:, c0:c1].float()
+        if k_scale is not None:
+            kb = kb * k_scale[:, c0:c1, :, None]
+            vb = vb * v_scale[:, c0:c1, :, None]
+        kb, vb = kb.transpose(1, 2), vb.transpose(1, 2)    # (B, H, c, D)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
         kv_pos = torch.arange(c0, c1, device=q.device)
         mask = torch.ones((sq, c1 - c0), dtype=torch.bool, device=q.device)
@@ -126,52 +137,78 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor        # (B, Smax, Hkv, D) bf16
+    k: torch.Tensor        # (B, Smax, Hkv, D) bf16, or int8 codes
     v: torch.Tensor
-    k_scale: Optional[torch.Tensor]   # int8 cache scales (not ported: None)
+    k_scale: Optional[torch.Tensor]   # (B, Smax, Hkv) f32 when int8
     v_scale: Optional[torch.Tensor]
     length: int            # valid prefix
 
 
 def init_kv_cache(batch: int, s_max: int, hkv: int, d: int, quant: bool,
                   device=None) -> KVCache:
-    if quant:
-        raise NotImplementedError("the int8 KV cache (plan.kv_quant) is not "
-                                  "ported yet")
+    """A zeroed cache: bf16 K/V, or (``quant``) int8 codes with f32 scales
+    per (token, head)."""
     shape = (batch, s_max, hkv, d)
+    if quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            length=0)
     return KVCache(k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    k_scale=None, v_scale=None, length=0)
 
 
+def _quant_kv(x: torch.Tensor):
+    """x (..., D) -> (int8 codes, f32 scales (...)): symmetric per row,
+    ``s = max|x| / 127`` and ``round(x / max(s, 1e-8))`` clipped to +-127,
+    in f32 (round half to even, as ``jnp.round``).  Both divisions take a
+    tensor divisor on x's device: CUDA's division by a Python scalar (or a
+    CPU scalar tensor) multiplies by its reciprocal, which is not the
+    reference's quotient.  ``torch.full`` fills it on the device, with no
+    copy from the host."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / torch.full((), 127.0, device=x.device)
+    q = torch.round(xf / torch.clamp(s[..., None], min=1e-8))
+    return torch.clamp(q, -127, 127).to(torch.int8), s
+
+
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: int) -> KVCache:
     """Write k/v (B, S_new, Hkv, D) at offset ``pos``, in place in the
-    caller's cache tensors; the returned cache has the new length.
+    caller's cache tensors (quantized first into an int8 cache); the
+    returned cache has the new length.
 
     Raises ``ValueError`` when the write does not fit the cache: a slice
     past ``s_max`` would be empty, and the token would be dropped while the
     length still grew."""
-    if cache.k_scale is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     s_new = k_new.shape[1]
     s_max = cache.k.shape[1]
     if pos < 0 or pos + s_new > s_max:
         raise ValueError(f"cache_update: positions {pos}..{pos + s_new - 1} "
                          f"do not fit the {s_max}-token KV cache")
+    if cache.k_scale is not None:
+        (k_new, ks), (v_new, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        cache.k_scale[:, pos:pos + s_new] = ks
+        cache.v_scale[:, pos:pos + s_new] = vs
     cache.k[:, pos:pos + s_new] = k_new
     cache.v[:, pos:pos + s_new] = v_new
     return cache._replace(length=pos + s_new)
 
 
-def cache_kv(cache: KVCache):
-    """K/V of the cache in bf16."""
-    if cache.k_scale is not None:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
-    return cache.k, cache.v
+def prefill_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``mha`` as the reference's ``attend`` scales: q times D^-0.5 rounded
+    to q's dtype (bf16: the scale rounded first), then unscaled f32 scores
+    (``scale=1.0``).  Where D^-0.5 is no power of two (D 20, 24, 128, 192)
+    scaling the f32 product instead rounds differently."""
+    qs = q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    return mha(qs, k, v, causal=causal, window=window, scale=1.0)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) @ w (d, h, k) -> (B, S, h, k)."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
@@ -181,16 +218,22 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
                 rope=None, cache: Optional[KVCache] = None,
                 decode: bool = False, cross_kv=None, hmask=None):
     """x (B, S, D) -> (y, cache).  Prefill (``cache`` given) also fills the
-    cache; decode (S == 1) appends to it at ``cache.length``."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention (cross_kv) is not ported "
-                                  "yet")
+    cache; decode (S == 1) appends to it at ``cache.length``.
+    ``cross_kv``: (k, v) (B, F, Hkv, D) from an encoder; the queries then
+    attend them without a causal mask (no RoPE), through ``attend``;
+    Whisper's decoder passes no cache and ``decode`` False at every step."""
     b, s, _ = x.shape
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q = proj(x, p["wq"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if rope is not None:
-        q, k = apply_rope(q, rope), apply_rope(k, rope)
+        q = q + p["bq"]
+    if cross_kv is None:
+        k, v = proj(x, p["wk"]), proj(x, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        if rope is not None:
+            q, k = apply_rope(q, rope), apply_rope(k, rope)
+    else:
+        k, v = cross_kv
     w = cfg.sliding_window
 
     if decode:
@@ -217,16 +260,21 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
             qx, rep_eff = q.reshape(b, hkv, n_rep, hd).transpose(1, 2), 1
         else:
             qx, rep_eff = q, n_rep
-        kf, vf = cache_kv(cache)
-        out = attend(qx, repeat_kv(kf, rep_eff), repeat_kv(vf, rep_eff),
+        scales = {}
+        if cache.k_scale is not None:
+            # int8: the codes stay int8, dequantized per chunk in attend
+            scales = dict(k_scale=repeat_kv(cache.k_scale, rep_eff),
+                          v_scale=repeat_kv(cache.v_scale, rep_eff))
+        out = attend(qx, repeat_kv(cache.k, rep_eff),
+                     repeat_kv(cache.v, rep_eff),
                      causal=False, window=window, q_offset=pos,
-                     kv_len=kv_len)
+                     kv_len=kv_len, **scales)
         if pack:
             out = out.transpose(1, 2).reshape(b, 1, hq, hd)
     else:
         if cache is not None:
             s_alloc = cache.k.shape[1]
-            if s > s_alloc:
+            if k.shape[1] > s_alloc:
                 # ring: only the last ``s_alloc`` tokens are ever read; with
                 # S % window == 0 they land on the slots the decode ring
                 # (pos % window) expects
@@ -234,7 +282,12 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
                                      0)._replace(length=s)
             else:
                 cache = cache_update(cache, k, v, 0)
-        out = mha(q, k, v, causal=True, window=w)
+        if cross_kv is None:
+            out = prefill_mha(q, k, v, causal=True, window=w)
+        else:
+            n_rep = q.shape[2] // k.shape[2]
+            out = attend(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                         causal=False, window=w)
     if hmask is not None:
         out = out * hmask[None, None, :, None]
     hq, hd, d = p["wo"].shape
@@ -255,7 +308,7 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     latent cache, re-expanded every step."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = _proj(x, p["wq"])
+    q = proj(x, p["wq"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     c_kv = x @ p["w_dkv"]                           # (B, S, rank)
     k_rope = (x @ p["w_kr"])[:, :, None, :]         # (B, S, 1, rope)
@@ -265,16 +318,15 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     if decode:
         pos = cache.length
         cache = cache_update(cache, c_kv[:, :, None, :], k_rope, pos)
-        c_all, kr_all = cache_kv(cache)
-        c_all = c_all[:, :, 0, :]
+        c_all, kr_all = cache.k[:, :, 0, :], cache.v
         kv_len = pos + s
     else:
         if cache is not None:
             cache = cache_update(cache, c_kv[:, :, None, :], k_rope, 0)
         c_all, kr_all, pos = c_kv, k_rope, 0
 
-    k_nope = _proj(c_all, p["w_uk"])
-    v = _proj(c_all, p["w_uv"])
+    k_nope = proj(c_all, p["w_uk"])
+    v = proj(c_all, p["w_uv"])
     h = q.shape[2]
     k = torch.cat([k_nope, kr_all.expand(-1, -1, h, -1)], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
@@ -283,12 +335,7 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     if decode:
         out = attend(qfull, k, vp, causal=False, q_offset=pos, kv_len=kv_len)
     else:
-        # the reference's attend scales q in bf16 (the scale rounded to
-        # bf16 first), then takes unscaled f32 scores; at D = 192 (or the
-        # reduced 24) D^-0.5 is no power of two, so the kernel gets q so
-        # scaled and a unit scale
-        qs = qfull * torch.tensor(qfull.shape[-1] ** -0.5, dtype=q.dtype)
-        out = mha(qs, k, vp, causal=True, scale=1.0)
+        out = prefill_mha(qfull, k, vp, causal=True)
     out = out[..., :m.v_head_dim]
     if hmask is not None:
         out = out * hmask[None, None, :, None]

@@ -1,15 +1,20 @@
-"""Shared NN building blocks: RMS norm, RoPE, SwiGLU, embeddings, LM head.
+"""Shared NN building blocks: RMS and layer norms, RoPE and Qwen2-VL's
+M-RoPE, Whisper's sinusoids, SwiGLU and GELU FFNs, embeddings, LM head,
+weight-only int8.
 
-The port's counterpart of ``repro.models.layers`` for the dense LM family,
-with the reference's casts step for step: bf16 storage and matmuls, f32
-norm statistics, RoPE angles and activations.  Every function takes the
-parameters it reads (``ParamTree`` entries or plain tensors).
+The port's counterpart of ``repro.models.layers``, with the reference's
+casts step for step: bf16 storage and matmuls, f32 norm statistics, RoPE
+angles and activations.  Transcendentals take the reference CPU build's
+bits: sines and cosines glibc's (``sincosf``), GELU's tanh XLA's
+(``xla_math.tanh_f32``).  Every function takes the parameters it reads
+(``ParamTree`` entries or plain tensors).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.workload.xla_math import tanh_f32
 from repro_torch.models.param import Spec
 from repro_torch.models.sincosf import sincos_f32
 
@@ -27,19 +32,65 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layer_norm_spec(d: int):
+    return {"w": Spec((d,), ("embed",), init="ones"),
+            "b": Spec((d,), ("embed",), init="zeros")}
+
+
+def layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
+    """Centre and normalise in f32, round to x's dtype, times the weight,
+    plus the bias."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["w"] + p["b"]
+
+
+def _pow_f32(base: float, exps: torch.Tensor) -> torch.Tensor:
+    """``base ** exps`` for f32 exponents: taken in f64 and rounded, i.e.
+    the correctly rounded f32 power, which is what XLA's f32 power gives on
+    every exponent used here (torch's f32 ``pow`` is one ulp off on a few
+    of Qwen2-7B's 64 frequencies)."""
+    return torch.pow(float(base), exps.double()).float()
+
+
 def rope_angles(positions: torch.Tensor, dim: int,
                 theta: float) -> torch.Tensor:
-    """positions (..., S) -> angles (..., S, dim//2), f32.
-
-    The f32 exponents ``-i / half`` as the reference; the power is taken in
-    f64 and rounded, i.e. the correctly rounded f32 power, which is what
-    XLA's f32 ``theta ** e`` gives (torch's f32 ``pow`` is one ulp off on a
-    few of Qwen2-7B's 64 frequencies).  The angles are f32 products."""
+    """positions (..., S) -> angles (..., S, dim//2), f32 products of the
+    positions and the frequencies ``theta ** (-i / half)`` (the exponents
+    in f32, ``half = dim // 2``)."""
     half = dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(float(theta), exps.double()).float()
-    return positions[..., None].float() * freqs
+    return positions[..., None].float() * _pow_f32(theta, exps)
+
+
+def mrope_angles(positions3: torch.Tensor, dim: int, theta: float,
+                 sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: positions3 (3, B, S), the (t, h, w)
+    streams -> angles (B, S, dim//2).  ``sections`` partitions the
+    ``dim//2`` frequency slots among the streams in order: slot j takes
+    its angle from the stream whose section holds it."""
+    assert sum(sections) == dim // 2, (sections, dim)
+    angles = rope_angles(positions3, dim, theta)        # (3, B, S, dim/2)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(angles[i, :, :, start:start + sec])
+        start += sec
+    return torch.cat(parts, dim=-1)
+
+
+def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings (n, d) f32: ``sin`` then
+    ``cos`` of ``pos * 10000 ** (-i / (d/2 - 1))``, glibc's ``sinf`` /
+    ``cosf`` as the reference's CPU build calls them."""
+    half = d // 2
+    exps = -torch.arange(half, dtype=torch.float32, device=device) / \
+        torch.full((), float(half - 1), device=device)
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] * \
+        _pow_f32(10000.0, exps)
+    sin, cos = sincos_f32(ang)
+    return torch.cat([sin, cos], dim=-1)
 
 
 def rope_tables(angles: torch.Tensor):
@@ -70,6 +121,40 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(g.float()).to(x.dtype) * u) @ p["wo"]
 
 
+def gelu_mlp_spec(d: int, f: int):
+    return {"wi": Spec((d, f), ("embed", "ffn")),
+            "bi": Spec((f,), ("ffn",), init="zeros"),
+            "wo": Spec((f, d), ("ffn", "embed")),
+            "bo": Spec((d,), ("embed",), init="zeros")}
+
+
+_SQRT_2_OVER_PI = 0.7978845834732056       # np.sqrt(2 / np.pi) in f32
+
+
+_GELU_CONSTS = tuple(torch.tensor(c, dtype=torch.float32)
+                     for c in (_SQRT_2_OVER_PI, 0.044715, 0.5, 1.0))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` of an f32 tensor, one rounded
+    f32 operation at a time in the reference's order: ``x * (x * x)``,
+    ``0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))``, times x; the
+    tanh is XLA's (``tanh_f32``).  Bitwise the eager reference; torch's
+    ``gelu(approximate="tanh")`` differs on a third of inputs.  The
+    constants are f32 scalars on the host: only multiplied and added, they
+    give the same bits as device tensors and cost no copy."""
+    c_sqrt, c_cube, c_half, c_one = _GELU_CONSTS
+    inner = c_sqrt * (x + c_cube * (x * (x * x)))
+    return x * (c_half * (c_one + tanh_f32(inner)))
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """Up projection plus bias, GELU (tanh form) in f32, cast to x's dtype,
+    down projection plus bias."""
+    h = gelu_tanh((x @ p["wi"] + p["bi"]).float())
+    return h.to(x.dtype) @ p["wo"] + p["bo"]
+
+
 def embed_spec(vocab_padded: int, d: int, tied: bool = True) -> Spec:
     if tied:
         return Spec((vocab_padded, d), ("vocab", "embed"), init="embed")
@@ -91,3 +176,22 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor,
         pad = torch.arange(vp, device=logits.device) >= vocab_logical
         logits = logits.masked_fill(pad, NEG)
     return logits
+
+
+def quantize_int8(w: torch.Tensor):
+    """Per-output-channel symmetric int8 of a (K, N) weight: (codes (K, N)
+    int8, scales (1, N) f32), ``round(w / max(s, 1e-8))`` clipped to +-127
+    with ``s = max_k |w| / 127``.  The divisors are tensors on w's device
+    (see ``attention._quant_kv``)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0, keepdim=True) / torch.full(
+        (), 127.0, device=w.device)
+    q = torch.round(wf / torch.clamp(scale, min=1e-8))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def matmul_int8(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x @ dequant(q): the codes cast to x's dtype, the product times the
+    scales cast to x's dtype."""
+    return (x @ q.to(x.dtype)) * scale.to(x.dtype)

@@ -1,10 +1,12 @@
 """Top-level model: embeddings + stack + head, prefill / decode.
 
 The port's counterpart of ``repro.models.model`` for decoder-only stacks
-of GQA or MLA attention with dense or MoE FFNs.
+of GQA or MLA attention with dense or MoE FFNs (the LM and MoE families
+and Qwen2-VL's backbone) and for Whisper's encoder-decoder.
 ``build_model(cfg, plan, device)`` returns a ``Model``, an ``nn.Module``
 whose parameters mirror the JAX package's tree (``tok_embed``,
-``stack.layers.<i>.attn.wq``, ..., ``stack.ln_f``, ``lm_head``):
+``stack.layers.<i>.attn.wq``, ..., ``stack.ln_f``, ``lm_head``; Whisper's
+``enc.<i>...``, ``dec.<i>...``, ``enc_ln``, ``dec_ln``, ``pos_embed``):
 
   init_params(generator)            -> self, weights drawn per leaf
   forward(batch)                    -> logits (B, S, Vp) f32
@@ -12,28 +14,34 @@ whose parameters mirror the JAX package's tree (``tok_embed``,
   prefill(batch, caches)            -> (caches, last_logits (B, 1, Vp))
   decode_step(caches, tokens, pos)  -> (caches, logits (B, 1, Vp))
 
-``batch`` is ``{"tokens": (B, S) int}``.  The MoE layers' summed
+``batch`` is ``{"tokens": (B, S) int}``; a VLM's may add
+``vision_embeds`` (B, Nv, d), placed before the tokens, and
+``positions3`` (3, B, Nv + S), the (t, h, w) streams of M-RoPE (else every
+stream is the position); Whisper's needs ``audio_embeds`` (B, F, d), and
+its caches are a ``whisper.WhisperCache``.  The MoE layers' summed
 load-balance loss of the last call is ``_last_aux``.  The families with
-modules not ported yet (vlm, audio, ssm, hybrid) raise
-``NotImplementedError``.
+modules not ported yet (ssm, hybrid) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.layers import (embed_lookup, embed_spec, lm_logits,
-                                       rope_angles, rope_tables)
+                                       mrope_angles, rope_angles,
+                                       rope_tables)
 from repro_torch.models.param import ParamTree, Spec
 from repro_torch.models.plan import DEFAULT_PLAN, Plan
 
 
 def model_spec(cfg: ModelConfig, plan: Plan) -> Dict[str, Any]:
     vp = plan.padded_vocab(cfg.vocab_size)
+    if cfg.is_encdec:
+        return whisper.whisper_spec(cfg, plan, vp)
     s = {"tok_embed": embed_spec(vp, cfg.d_model, tied=cfg.tie_embeddings),
          "stack": transformer.stack_spec(cfg, plan)}
     if not cfg.tie_embeddings:
@@ -49,54 +57,96 @@ class Model(ParamTree):
         self.cfg, self.plan, self.device = cfg, plan, dev
         self._last_aux = None
 
-    def _rope(self, positions: torch.Tensor):
-        if self.cfg.rope_theta == 0:
-            return None
+    def _rope(self, positions: torch.Tensor, batch: Optional[dict] = None):
         cfg = self.cfg
+        if cfg.rope_theta == 0:
+            return None
         dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.hd
+        if cfg.m_rope:
+            pos3 = batch["positions3"] if batch and "positions3" in batch \
+                else positions[None].expand(3, *positions.shape)
+            return rope_tables(mrope_angles(pos3, dim, cfg.rope_theta,
+                                            cfg.mrope_sections))
         return rope_tables(rope_angles(positions, dim, cfg.rope_theta))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        head = self.tok_embed if cfg.tie_embeddings else self.lm_head
-        return lm_logits(x, head, cfg.vocab_size,
-                         transpose=cfg.tie_embeddings)
+        tied = cfg.tie_embeddings or cfg.is_encdec
+        head = self.tok_embed if tied else self.lm_head
+        return lm_logits(x, head, cfg.vocab_size, transpose=tied)
 
-    def _run(self, tokens: torch.Tensor, positions: torch.Tensor, caches,
-             decode: bool):
-        x = embed_lookup(self.tok_embed, tokens)
+    def _embed_in(self, batch) -> torch.Tensor:
+        x = embed_lookup(self.tok_embed, batch["tokens"])
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+        return x
+
+    def _run(self, x: torch.Tensor, positions: torch.Tensor, caches,
+             decode: bool, batch: Optional[dict] = None):
         x, caches, self._last_aux = transformer.stack_forward(
             self.stack, x, self.cfg, self.plan,
-            rope=self._rope(positions), caches=caches, decode=decode)
+            rope=self._rope(positions, batch), caches=caches, decode=decode)
         return x, caches
+
+    def _prompt(self, batch):
+        """The decoder's input embeddings of a whole prompt and, for a
+        decoder-only model, its positions."""
+        if self.cfg.is_encdec:
+            tokens = batch["tokens"]
+            x = embed_lookup(self.tok_embed, tokens)
+            return x + self.pos_embed[:tokens.shape[1]], None
+        x = self._embed_in(batch)
+        b, s, _ = x.shape
+        return x, torch.arange(s, device=x.device).expand(b, s)
 
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        pos = torch.arange(s, device=tokens.device).expand(b, s)
-        x, _ = self._run(tokens, pos, None, decode=False)
+        x, pos = self._prompt(batch)
+        if self.cfg.is_encdec:
+            enc = whisper.encode(self, batch["audio_embeds"], self.cfg,
+                                 self.plan)
+            x, _ = whisper.decode_stack(self, x, self.cfg, self.plan,
+                                        enc_out=enc)
+        else:
+            x, _ = self._run(x, pos, None, decode=False, batch=batch)
         return self._head(x)
 
     def init_decode(self, batch: int, s_max: int):
+        if self.cfg.is_encdec:
+            return whisper.init_caches(self.cfg, self.plan, batch, s_max,
+                                       device=self.device)
         return transformer.init_caches(self.cfg, self.plan, batch, s_max,
                                        device=self.device)
 
     @torch.no_grad()
     def prefill(self, batch, caches):
-        """Fill ``caches`` from a whole prompt; (caches, last logits)."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        pos = torch.arange(s, device=tokens.device).expand(b, s)
-        x, caches = self._run(tokens, pos, caches, decode=False)
+        """Fill ``caches`` from a whole prompt; (caches, last logits).
+        Whisper's caches come back as a ``WhisperCache`` with the encoder's
+        cross-attention K/V."""
+        x, pos = self._prompt(batch)
+        if self.cfg.is_encdec:
+            enc = whisper.encode(self, batch["audio_embeds"], self.cfg,
+                                 self.plan)
+            cross = whisper.cross_kv(self, enc, self.cfg, self.plan)
+            x, caches = whisper.decode_stack(self, x, self.cfg, self.plan,
+                                             cross=cross, caches=caches)
+            return whisper.WhisperCache(caches, cross), self._head(x[:, -1:])
+        x, caches = self._run(x, pos, caches, decode=False, batch=batch)
         return caches, self._head(x[:, -1:])
 
     @torch.no_grad()
     def decode_step(self, caches, tokens: torch.Tensor, pos: int):
-        """tokens (B, 1) at absolute position ``pos`` -> (caches, logits)."""
-        b = tokens.shape[0]
-        positions = torch.full((b, 1), pos, device=tokens.device)
-        x, caches = self._run(tokens, positions, caches, decode=True)
+        """tokens (B, 1) at absolute position ``pos`` -> (caches, logits).
+        M-RoPE takes ``pos`` on all three streams."""
+        x = embed_lookup(self.tok_embed, tokens)
+        if self.cfg.is_encdec:
+            self_kv, cross = caches
+            x, self_kv = whisper.decode_stack(
+                self, x + self.pos_embed[pos:pos + 1], self.cfg, self.plan,
+                cross=cross, caches=self_kv, decode=True)
+            return whisper.WhisperCache(self_kv, cross), self._head(x)
+        positions = torch.full((tokens.shape[0], 1), pos, device=tokens.device)
+        x, caches = self._run(x, positions, caches, decode=True)
         return caches, self._head(x)
 
 

@@ -3,8 +3,11 @@
 The port's counterpart of ``repro.models.plan`` with the fields a
 one-device server reads: head and vocab padding (exact functions: padded
 q heads are masked to zero, padded vocab slots to -1e30), the int8 KV
-cache (not ported yet: ``kv_quant`` raises in the attention layer), the
-MoE capacity factor and the serving toggles.  There is no mesh, so no
+cache, the MoE capacity factor and the serving toggles.  The reference's
+``weight_quant`` is read nowhere there and has no field here
+(``layers.quantize_int8`` / ``matmul_int8`` are its functions), and its
+``opt_int8_attend`` has only its default here: an int8 cache is always
+read by ``attend`` itself, dequantized per chunk.  There is no mesh, so no
 sharding hints and no data axis: the MoE dispatches one token group.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ def _ceil_to(x: int, m: int) -> int:
 class Plan:
     tp: int = 1                  # model-axis size (head / ffn padding only)
     vocab_pad: int = 256
-    kv_quant: bool = False       # int8 KV cache (not ported: raises)
+    kv_quant: bool = False       # int8 KV cache (serving, big models)
     moe_capacity: float = 1.25   # expert capacity factor; 0 -> drop-free
                                  # up to 8192 assignments (serving)
     opt_gqa_pack: bool = True     # decode: fold GQA groups into the query

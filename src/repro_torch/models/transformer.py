@@ -7,8 +7,8 @@ the port keeps one entry per layer (``stack.layers[i]``, an
 ``nn.ModuleList``) and loops over them, so parameters are allocated and
 initialised layer by layer.  ``group_layout`` stays: it is how the JAX
 package's stacked trees are read (``convert.model_params_from_numpy``).
-Mamba and RWKV mixers, encoder-decoder stacks and M-RoPE raise
-``NotImplementedError``.
+Mamba and RWKV mixers raise ``NotImplementedError``; Whisper's
+encoder-decoder stack is ``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -70,17 +70,17 @@ def group_layout(cfg: ModelConfig) -> List[Tuple[int, List[LayerDef]]]:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer of ``cfg`` is GQA
-    or MLA attention with a dense or MoE FFN, in a decoder-only stack
-    without M-RoPE."""
+    or MLA attention with a dense or MoE FFN (Mamba and RWKV mixers are
+    not ported yet)."""
     other = sorted({f"{d.mixer}+{d.ffn}" for d in
                     (layer_def(cfg, i) for i in range(cfg.n_layers))
                     if d not in PORTED})
-    if other or cfg.is_encdec or cfg.m_rope:
+    if other:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family}) needs modules the port does "
-            f"not have yet ({', '.join(other) or 'encoder / M-RoPE'}); the "
-            "port serves attention (GQA, MLA) + dense / MoE FFN stacks "
-            "(ROADMAP.md Queue 1)")
+            f"not have yet ({', '.join(other)}); the port serves attention "
+            "(GQA, MLA) + dense / MoE FFN stacks and Whisper (ROADMAP.md "
+            "Queue 1)")
 
 
 def _layer_spec(cfg: ModelConfig, plan: Plan, d: LayerDef):
@@ -100,10 +100,11 @@ def stack_spec(cfg: ModelConfig, plan: Plan):
 
 def init_caches(cfg: ModelConfig, plan: Plan, batch: int, s_max: int,
                 device=None) -> List[attention.KVCache]:
-    """One KV cache per layer: an MLA layer's holds the latent c_kv (k,
-    ``(B, s_max, 1, kv_lora_rank)``) and the RoPE key (v, ``(B, s_max, 1,
-    qk_rope_head_dim)``) in bf16; a sliding-window layer's is a ring of
-    ``min(s_max, window)`` slots."""
+    """One KV cache per layer, int8 under ``plan.kv_quant``: an MLA layer's
+    holds the latent c_kv (k, ``(B, s_max, 1, kv_lora_rank)``) and the RoPE
+    key (v, ``(B, s_max, 1, qk_rope_head_dim)``) in bf16 always, as the
+    reference; a sliding-window layer's is a ring of ``min(s_max, window)``
+    slots."""
     hkv = plan.padded_kv_heads(cfg.n_kv_heads)
     s_alloc = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
     caches = []
