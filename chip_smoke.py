@@ -2,7 +2,8 @@
 simulator (its controllers, streamed replay, chunk codec, checkpoints,
 device workload generator and fault-tolerant sweep orchestrator too), the
 FIGCache-KV serving path and the LM serving paths (dense; MoE with MLA;
-the sliding-window ring cache; a VLM with the int8 KV cache; Whisper).
+the sliding-window ring cache; a VLM with the int8 KV cache; Whisper;
+Mamba in Jamba and RWKV-6).
 
     python3 chip_smoke.py
 
@@ -203,10 +204,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    first 4 ring decode steps (every one past the ring's wrap) held layer
    by layer against an 8232-slot window-masked cache on the same inputs,
    the other 28 timed, finite logits;
-17. VLM and Whisper serving: Qwen2-VL-72B at full width cut to 8 of 80
+17. VLM and Whisper serving: Qwen2-VL-72B at full width cut to 4 of 80
    layers with the int8 KV cache (``Plan(kv_quant=True)``), served through
    ``serve.serve_batch`` at batch 4, 1024 zero vision embeddings before
-   3072 prompt tokens, 64 greedy tokens: 8 flash_attention launches in the
+   3072 prompt tokens, 64 greedy tokens: 4 flash_attention launches in the
    prefill (S 4096, H 64, Hkv 8, D 128, causal), tokens in range, finite
    logits; a warm prefill bitwise equal to the served one whose every
    layer's int8 codes and scales equal the CPU's ``_quant_kv`` of the same
@@ -228,7 +229,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    layer's kernel output within 2e-2 plus one bf16 ulp of plain, finite
    logits; encoder ms, prefill ms, decode ms/step, tokens/s; the kernel at
    the encoder's shape timed beside plain, SDPA and the bound;
-18. summary: one ``{"kernels": [...]}`` JSON line (device times from
+18. attention-free mixers: Jamba-v0.1-52B at full width cut to one
+   8-layer period of 32 (7 Mamba mixers, 1 RoPE-free attention mixer, 4
+   dense and 4 MoE FFNs of 16 experts top-2; 24.76 GiB), served through
+   ``serve.serve_batch`` at batch 4, prompt 2048, 64 greedy tokens: 1
+   flash_attention launch in the prefill (H 32, Hkv 8, D 128, causal),
+   tokens in range, finite logits, a warm prefill bitwise equal to the
+   served one, the attention layer's kernel output within 2e-2 plus one
+   bf16 ulp of plain on its inputs, each MoE layer's dropped share, the
+   kernel at that shape timed; then RWKV6-3B whole through
+   ``serve.run(reduced=False)`` at batch 4, prompt 1024, 64 tokens: no
+   flash_attention launch, finite logits, a warm prefill bitwise equal.
+   For each, one mixer of the served model (Jamba's Mamba layer 3, RWKV's
+   block 16) on its first 256 prefill inputs: the card against the CPU on
+   the same bf16 inputs and weights (within 2e-2 plus one bf16 ulp; the
+   RWKV block's four stages, ln1, time mix, ln2, channel mix, each on the
+   card's own input to it, the whole block's gap printed; the f32 ssm /
+   wkv state's error relative to its largest entry printed), and 4
+   decode steps after a 252-token prefill against the 256-token prefill
+   (within 5e-2: Mamba's output, the RWKV block's time and channel
+   mixes' outputs, the block's own printed); one decode step under
+   sync-debug mode "error"; prefill ms cold and warm, decode ms/step against the weights' byte
+   bound, tokens/s, peak memory, a profile of 4 decode steps, and the
+   share of a prefill spent in the per-token recurrences
+   (``mamba._recurrence``, ``rwkv6._wkv_scan``; synchronised around each
+   chunk's);
+19. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
@@ -240,7 +266,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    ``tel_tax``; flash_attention's launches on each LM path, counted from
    0 around its prefill, in ``path_launches``, and its times at MLA's,
    Qwen2-VL's and Whisper's encoder's shapes in ``mla``, ``qwen2_vl`` and
-   ``whisper``),
+   ``whisper``, and at Jamba's in ``jamba``; RWKV6-3B's path launches it
+   no time),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -309,7 +336,11 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.sincosf import sincos_f32  # noqa: E402
 from repro_torch.models import Plan, build_model  # noqa: E402
+from repro_torch.models.transformer import \
+    layer_def as model_layer_def  # noqa: E402
 from repro_torch.models import whisper as whisper_mod  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv_mod  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
@@ -341,18 +372,32 @@ MLA_ARCH = "deepseek-v2-lite"
 RING_ARCH, RING_LAYERS, RING_BATCH, RING_PROMPT, RING_GEN, RING_CHECK = \
     "mixtral-8x22b", 2, 2, 8192, 32, 4
 # VLM serving: Qwen2-VL-72B (src/repro/configs/qwen2_vl_72b.py) at full
-# width cut to 8 of its 80 layers (memory: 80 layers are 135.4 GiB, 8 are
-# 17.72 GiB with both vocab tables) with the int8 KV cache, the plan the
+# width cut to 4 of its 80 layers (memory: 80 layers are 135.4 GiB; 4 are
+# 11.18 GiB with both vocab tables, cut from 8 to keep the script near its
+# 600 s aim once phase 18 came) with the int8 KV cache, the plan the
 # JAX package's make_plan picks for the decode of a model over 30e9
 # parameters (src/repro/launch/steps.py:35-38); batch 4, its 1024 vision
 # tokens before 3072 prompt tokens (S 4096), 64 greedy tokens; the first 4
 # decode steps held layer by layer
 VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_CHECK = \
-    "qwen2-vl-72b", 8, 4, 3072, 64, 4
+    "qwen2-vl-72b", 4, 4, 3072, 64, 4
 VLM_GRID = 32                                   # 32 x 32 vision tokens
 # Whisper-tiny whole (src/repro/configs/whisper_tiny.py: 4 + 4 layers, its
 # 1500 audio frames), batch 16, 128-token prompts, 64 greedy tokens
 ASR_ARCH, ASR_BATCH, ASR_PROMPT, ASR_GEN = "whisper-tiny", 16, 128, 64
+
+# attention-free mixers: Jamba-v0.1-52B (src/repro/configs/jamba_v0_1_52b.py)
+# at full width cut to one 8-layer period of its 32 layers (memory: 32
+# layers are 96.06 GiB, 8 are 24.76 GiB; the period holds 7 Mamba mixers, 1
+# RoPE-free attention mixer, 4 dense and 4 MoE FFNs), batch 4, prompt 2048,
+# 64 greedy tokens; then RWKV6-3B (src/repro/configs/rwkv6_3b.py) whole,
+# batch 4, prompt 1024, 64 tokens; each recurrence held card against CPU on
+# its layer's first SSM_CHECK prefill inputs, and a decode of SSM_DECODE
+# tokens continuing SSM_CHECK - SSM_DECODE
+JAMBA_ARCH, JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = \
+    "jamba-v0.1-52b", 8, 4, 2048, 64
+RWKV_ARCH, RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = "rwkv6-3b", 4, 1024, 64
+SSM_CHECK, SSM_DECODE = 256, 4
 
 # tests/test_obs.py's controllers
 SCHEDS = {
@@ -1638,16 +1683,21 @@ def killed_after(segments, n):
 
 
 @contextlib.contextmanager
-def host_timer(shares, key, module, name):
+def host_timer(shares, key, module, name, sync=False):
     """Add the wall time of every call of ``module.name`` to
-    ``shares[key]``."""
+    ``shares[key]``; with ``sync``, synchronised on both sides (the call's
+    device work included)."""
     fn = getattr(module, name)
 
     def timed(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
             return fn(*a, **kw)
         finally:
+            if sync:
+                torch.cuda.synchronize()
             shares[key] = shares.get(key, 0.0) + time.perf_counter() - t0
     with patched(module, **{name: timed}):
         yield
@@ -3290,7 +3340,7 @@ def recording_attend(errs):
 
 
 def phase_vlm(dev):
-    """Qwen2-VL-72B at full width, 8 layers, int8 KV cache: served through
+    """Qwen2-VL-72B at full width, 4 layers, int8 KV cache: served through
     ``serve.serve_batch`` (the entry ``serve.run`` calls), checked and
     timed; its prefill with M-RoPE's (t, h, w) streams; then Whisper-tiny
     whole through ``serve.run``."""
@@ -3627,6 +3677,417 @@ def whisper_gelu(dev, cfg, enc_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the attention-free mixers (Mamba in Jamba, RWKV-6)
+
+def recording(module, name, store, n_tokens):
+    """``module.name`` (a mixer ``(p, x, cfg, plan, **kw)``) that keeps
+    each call's parameters and the first ``n_tokens`` of its input."""
+    real = getattr(module, name)
+
+    def rec(p, x, *a, **kw):
+        store.append((p, x[:, :n_tokens].clone()))
+        return real(p, x, *a, **kw)
+    return patched(module, **{name: rec})
+
+
+def cpu_tree(params):
+    """A ``ParamTree``'s parameters as nested dicts of CPU tensors."""
+    out = {}
+    for name, t in params.named_parameters():
+        *path, leaf = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = t.detach().cpu()
+    return out
+
+
+def state_rel(got, want):
+    """Max abs difference of two f32 states, over the reference's largest
+    magnitude."""
+    want = want.float()
+    return float((got.cpu().float() - want).abs().max() /
+                 want.abs().max().clamp_min(1e-30))
+
+
+def card_vs_cpu(tag, what, got, want):
+    """A bf16 output of the card against the CPU's on the same inputs:
+    within 2e-2 plus one bf16 ulp; (max abs, beyond one ulp)."""
+    err = float((got.cpu().float() - want.float()).abs().max())
+    excess = ulp_excess(got.cpu(), want)
+    check(excess <= 2e-2, f"{tag}: {what} on the card vs the CPU beyond 2e-2 "
+          f"plus one bf16 ulp: {excess} (max abs {err})")
+    return err, excess
+
+
+def mamba_holds(tag, p, x, cfg, plan):
+    """One Mamba layer of the served model on its recorded inputs x (B,
+    SSM_CHECK, D): the card against the CPU on the same bf16 inputs and
+    weights, the f32 ssm state's error relative to its largest entry
+    printed; then a decode continuing a shorter prefill."""
+    b, dev = x.shape[0], x.device
+    out, st = mamba_mod.mamba_forward(
+        p, x, cfg, plan, state=mamba_mod.init_state(cfg, b, device=dev))
+    t0 = time.perf_counter()
+    want, wst = mamba_mod.mamba_forward(
+        cpu_tree(p), x.cpu(), cfg, plan,
+        state=mamba_mod.init_state(cfg, b, device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    err, excess = card_vs_cpu(tag, "the output", out, want)
+    rel = state_rel(st.ssm, wst.ssm)
+    conv = float((st.conv.cpu().float() - wst.conv.float()).abs().max())
+    # the decode continuing a shorter prefill, against the whole prefill
+    n0 = SSM_CHECK - SSM_DECODE
+    _, st = mamba_mod.mamba_forward(
+        p, x[:, :n0], cfg, plan, state=mamba_mod.init_state(cfg, b,
+                                                             device=dev))
+    dec = []
+    for t in range(n0, SSM_CHECK):
+        o, st = mamba_mod.mamba_forward(p, x[:, t:t + 1], cfg, plan,
+                                        state=st, decode=True)
+        dec.append(float((o.float() - out[:, t:t + 1].float()).abs().max()))
+    check(max(dec) < 5e-2, f"{tag}: decode continuing a {n0}-token prefill "
+          f"vs the {SSM_CHECK}-token prefill: {dec}")
+    dec = max(dec)
+    log(f"{tag} on the layer's first {SSM_CHECK} prefill inputs (B {b}): "
+        f"card vs CPU on the same bf16 inputs and weights max abs "
+        f"{err:.4g}, beyond one bf16 ulp {excess:.4g} (held to 2e-2); f32 "
+        f"ssm state max abs error relative to its largest entry {rel:.4g}; "
+        f"conv state max abs {conv:.4g}; CPU {t_cpu:.1f} s; "
+        f"{SSM_DECODE} decode steps after a {n0}-token prefill vs the "
+        f"{SSM_CHECK}-token prefill max abs {dec:.4g} (held to 5e-2)")
+    return {"max_abs_err": err, "ulp_excess": excess, "state_rel": rel,
+            "decode_err": dec}
+
+
+def rwkv_holds(tag, p, x, cfg, plan):
+    """One RWKV block of the served model on its recorded inputs x (B,
+    SSM_CHECK, D): each of its four stages (ln1, the time mix, ln2, the
+    channel mix) against the CPU on the card's own input to it, as phase
+    8 holds each attention layer's output on its own inputs (a residual
+    add, x + y in bf16, rounds alike given alike inputs, but at the
+    stream's magnitude, up to ~25 here, its one more rounding can put a
+    device's last-bit differences in y past one ulp of the sum); the whole
+    block's card-vs-CPU gap and the f32 wkv state's error relative to its
+    largest entry printed; then a decode continuing a shorter prefill."""
+    b, dev = x.shape[0], x.device
+    cp = cpu_tree(p)
+
+    def ln(q, h, w):
+        return layers_mod.layer_norm(h, {"w": q[w], "b": q[w + "_b"]}, 1e-5)
+
+    t0 = time.perf_counter()
+    held = {}
+    xn1 = ln(p, x, "ln1")
+    held["ln1"] = card_vs_cpu(tag, "ln1", xn1, ln(cp, x.cpu(), "ln1"))
+    y_tm, (_, wkv) = rwkv_mod.time_mix(p["tm"], xn1, cfg)
+    want, (_, wwkv) = rwkv_mod.time_mix(cp["tm"], xn1.cpu(), cfg)
+    held["time_mix"] = card_vs_cpu(tag, "the time mix", y_tm, want)
+    x2 = x + y_tm
+    xn2 = ln(p, x2, "ln2")
+    held["ln2"] = card_vs_cpu(tag, "ln2", xn2, ln(cp, x2.cpu(), "ln2"))
+    y_cm, _ = rwkv_mod.channel_mix(p["cm"], xn2)
+    want, _ = rwkv_mod.channel_mix(cp["cm"], xn2.cpu())
+    held["channel_mix"] = card_vs_cpu(tag, "the channel mix", y_cm, want)
+    out = x2 + y_cm
+    block, _ = rwkv_mod.rwkv_block(cp, x.cpu(), cfg, plan)
+    t_cpu = time.perf_counter() - t0
+    gap = float((out.cpu().float() - block.float()).abs().max())
+    gap_ex = ulp_excess(out.cpu(), block)
+    rel = state_rel(wkv, wwkv)
+    # the decode continuing a shorter prefill, held on the two mixers'
+    # outputs (the time mix carries wkv and x_tm, the channel mix x_cm)
+    # against the whole prefill's; the block's output printed
+    mixed = {"time_mix": [], "channel_mix": []}
+
+    def recorder(name):
+        real = getattr(rwkv_mod, name)
+
+        def rec(*a, **kw):
+            res = real(*a, **kw)
+            mixed[name].append(res[0])
+            return res
+        return rec
+
+    st = rwkv_mod.init_state(cfg, b, device=dev)
+    n0 = SSM_CHECK - SSM_DECODE
+    dec, dec_out = [], []
+    with patched(rwkv_mod, time_mix=recorder("time_mix"),
+                 channel_mix=recorder("channel_mix")):
+        full, _ = rwkv_mod.rwkv_block(p, x, cfg, plan, state=st)
+        _, st = rwkv_mod.rwkv_block(p, x[:, :n0], cfg, plan, state=st)
+        for t in range(n0, SSM_CHECK):
+            o, st = rwkv_mod.rwkv_block(p, x[:, t:t + 1], cfg, plan,
+                                        state=st)
+            dec.append(max(float((mixed[k][-1].float() - mixed[k][0][
+                :, t:t + 1].float()).abs().max()) for k in mixed))
+            dec_out.append(float((o.float() - full[:, t:t + 1].float())
+                                 .abs().max()))
+    check(torch.equal(full, out) and max(dec) < 5e-2, f"{tag}: the mixers' "
+          f"outputs decoding after a {n0}-token prefill vs the "
+          f"{SSM_CHECK}-token prefill: {dec}")
+    dec = max(dec)
+    stages = "; ".join(f"{k} max abs {e:.4g}, beyond one bf16 ulp {x_:.4g}"
+                       for k, (e, x_) in held.items())
+    log(f"{tag} on the block's first {SSM_CHECK} prefill inputs (B {b}): "
+        f"card vs CPU on the same bf16 inputs and weights, each stage on "
+        f"the card's own input to it: {stages} (held to 2e-2); the whole "
+        f"block vs the CPU's whole block max abs {gap:.4g}, beyond one bf16 "
+        f"ulp {gap_ex:.4g} (not bounded); f32 wkv state max abs error "
+        f"relative to its largest entry {rel:.4g}; card and CPU "
+        f"{t_cpu:.1f} s; {SSM_DECODE} decode steps after a {n0}-token "
+        f"prefill vs the {SSM_CHECK}-token prefill: the time and channel "
+        f"mixes' outputs max abs {dec:.4g} (held to 5e-2), the block's "
+        f"{max(dec_out):.4g} (not bounded)")
+    return {"max_abs_err": max(e for e, _ in held.values()),
+            "ulp_excess": max(x_ for _, x_ in held.values()),
+            "block_gap": gap, "block_ulp_excess": gap_ex, "state_rel": rel,
+            "decode_err": dec, "block_decode_err": max(dec_out)}
+
+
+def ssm_prefill_share(model, batch, n, s_max, module, name):
+    """A prefill with ``module.name`` (the per-token recurrence) timed
+    synchronised on both sides: (its wall s, the recurrences' s)."""
+    shares = {}
+    caches = model.init_decode(n, s_max)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with host_timer(shares, "rec", module, name, sync=True):
+        model.prefill(batch, caches)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, shares["rec"]
+
+
+def ssm_decode_checks(tag, model, caches, pos, tok):
+    """One decode step from a prefill's ``caches`` under sync-debug mode
+    "error", then a profile of 4 steps."""
+    n = tok.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(caches, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"{tag} one decode step under sync-debug mode 'error': no "
+        f"synchronising call")
+
+    def replay():
+        c = caches
+        for i in range(4):
+            c, _ = model.decode_step(c, tok, pos + i)
+        torch.cuda.synchronize()
+
+    return profile_replay(f"{model.cfg.name} decode B={n}", replay, 4)
+
+
+def phase_jamba(dev):
+    """Jamba-v0.1-52B at full width, one 8-layer period, served through
+    ``serve.serve_batch``: one flash_attention launch a prefill (H 32, Hkv
+    8, no RoPE), checked and timed."""
+    full = configs.get(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    plan = Plan(moe_capacity=0)
+    v, n, s = cfg.vocab_size, JAMBA_BATCH, JAMBA_PROMPT
+    s_max = s + JAMBA_GEN + 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, plan, device=dev)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    model.init_params(rng)
+    prompt = torch.randint(0, v, (n, s), generator=rng, device=dev)
+    batch = {"tokens": prompt}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kinds = [f"{d.mixer}+{d.ffn}" for d in
+             (model_layer_def(cfg, i) for i in range(cfg.n_layers))]
+    log(f"[jamba] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({', '.join(kinds)}), d_model {cfg.d_model}, Mamba d_state "
+        f"{cfg.mamba.d_state} d_conv {cfg.mamba.d_conv} expand "
+        f"{cfg.mamba.expand}, attention H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"D={cfg.hd} (no RoPE), {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {v}; weights "
+        f"{weights / 2**30:.2f} GiB; batch {n}, prompt {s}, {JAMBA_GEN} "
+        f"greedy tokens; random weights from seed 0")
+    flash_kernel.COUNTER.launches = 0
+    toks, served, logits, t = serve.serve_batch(model, batch, JAMBA_GEN)
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_attn = kinds.count("attn+dense") + kinds.count("attn+moe")
+    check(launches == n_attn == 1, f"{JAMBA_ARCH}: flash_attention launched "
+          f"{launches} times in one prefill, expected {n_attn}")
+    check(toks.shape == (n, JAMBA_GEN) and 0 <= toks.min() and toks.max() < v,
+          f"{JAMBA_ARCH}: tokens {toks.shape} out of range")
+    for name, lg in (("prefill", served), ("decode", logits)):
+        check(bool(torch.isfinite(lg[..., :v]).all()),
+              f"{JAMBA_ARCH}: {name} logits not finite")
+
+    # a warm prefill recording the attention call's shapes, each MoE
+    # layer's dropped share and each Mamba layer's first inputs: bitwise
+    # equal to the served one
+    shapes, moe_store, mamba_store = [], [], []
+    real_mha = attention.mha
+
+    def rec_mha(q, k, v_, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real_mha(q, k, v_, **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(attention, mha=rec_mha), \
+            patched(moe_mod, moe_forward=recording_moe(moe_store)), \
+            recording(mamba_mod, "mamba_forward", mamba_store, SSM_CHECK):
+        caches, warm = model.prefill(batch, model.init_decode(n, s_max))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(torch.equal(warm, served), f"{JAMBA_ARCH}: two prefills differ")
+    want_q = (n, s, cfg.n_heads, cfg.hd)
+    want_k = (n, s, cfg.n_kv_heads, cfg.hd)
+    check(shapes == [(want_q, want_k)], f"{JAMBA_ARCH}: prefill attention "
+          f"calls {shapes}, expected one at q {want_q}, k {want_k}")
+    drops = [round(float(d), 5) for _, _, d in moe_store]
+    del moe_store
+    check(len(drops) == kinds.count("mamba+moe") + kinds.count("attn+moe")
+          and len(mamba_store) == kinds.count("mamba+dense") +
+          kinds.count("mamba+moe"), f"{JAMBA_ARCH}: {len(drops)} MoE and "
+          f"{len(mamba_store)} Mamba calls in a prefill")
+
+    layer_err, layer_excess = [], []
+    with patched(attention, mha=checked_mha(real_mha, layer_err,
+                                            layer_excess)):
+        _, plain = model.prefill(batch, model.init_decode(n, s_max))
+    check(len(layer_err) == n_attn and max(layer_excess) <= 2e-2,
+          f"{JAMBA_ARCH}: kernel vs plain on the layer's own inputs beyond "
+          f"one bf16 ulp: {layer_excess} (max abs {layer_err})")
+    log(f"[jamba] launches flash_attention={launches} (q {want_q}, k "
+        f"{want_k}, causal, no RoPE); prefill {t['prefill_s'] * 1e3:.1f} ms "
+        f"first (cold), {t_warm * 1e3:.1f} ms warm, bitwise equal; decode "
+        f"{t['ms_per_step']:.3f} ms/step over {JAMBA_GEN} steps "
+        f"({t['tok_s']:.1f} tokens/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f} GiB); "
+        f"dropped_frac per MoE layer at prefill (C = "
+        f"{moe_mod.capacity(cfg, plan, n, s)} of T k = "
+        f"{n * s * cfg.moe.top_k}): {drops}; the attention layer's kernel "
+        f"output vs plain on its own inputs max abs {max(layer_err):.4g}, "
+        f"beyond one bf16 ulp {max(layer_excess):.4g} (held to 2e-2); max "
+        f"logit difference {float((warm - plain).abs().max()):.4g} (not "
+        f"bounded)")
+    del warm, plain
+
+    # the recurrence of the Mamba layer just before the attention layer
+    mamba_layers = [i for i, k in enumerate(kinds) if k.startswith("mamba")]
+    layer = kinds.index("attn+dense") - 1
+    p, x = mamba_store[mamba_layers.index(layer)]
+    del mamba_store
+    held = mamba_holds(f"[jamba] mamba_forward (layer {layer})", p, x, cfg,
+                       plan)
+    del p, x
+    wall, rec = ssm_prefill_share(model, batch, n, s_max, mamba_mod,
+                                  "_recurrence")
+    log(f"[jamba] prefill with the per-token recurrences timed (synchronised "
+        f"around each chunk's): {wall * 1e3:.1f} ms, of which the "
+        f"recurrences {rec * 1e3:.1f} ms, share {rec / wall:.4f}")
+    prof = ssm_decode_checks("[jamba]", model, caches, s,
+                             torch.from_numpy(toks[:, :1]).to(dev))
+    del caches
+    # a decode step reads every layer's weights: all 16 experts' (the
+    # (E, C, D) buffers), the dense FFNs, the mixers, the head
+    step_bytes = weights - model.tok_embed.numel() * 2
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[jamba] a decode step reads {step_bytes / 1e9:.2f} GB of weights "
+        f"(all but the embedding table): at least {step_bound:.3f} ms/step "
+        f"at 3.35 TB/s against {t['ms_per_step']:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    flash = time_flash(dev, (n, s, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                             True), 403, "[jamba]")
+    return {"launches": launches, "prefill_ms": t["prefill_s"] * 1e3,
+            "warm_prefill_ms": t_warm * 1e3, "ms_per_step": t["ms_per_step"],
+            "tok_s": t["tok_s"], "peak_gib": peak / 2**30,
+            "weights_gib": weights / 2**30, "dropped_frac": drops,
+            "step_bound_ms": step_bound, "recurrence_share": rec / wall,
+            "held": held, "profile": prof, "flash": flash}
+
+
+def phase_rwkv(dev):
+    """RWKV6-3B whole through ``serve.run(reduced=False)``: no kernel
+    launch, checked and timed."""
+    cfg = configs.get(RWKV_ARCH)
+    n, s = RWKV_BATCH, RWKV_PROMPT
+    s_max = s + RWKV_GEN + 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_kernel.COUNTER.launches = 0
+    res = serve.run(RWKV_ARCH, reduced=False, prompt_len=s, gen=RWKV_GEN,
+                    batch=n, seed=0, device=dev)
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    model, batch, plan = res.model, res.batch, res.model.plan
+    v = cfg.vocab_size
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(launches == 0, f"{RWKV_ARCH}: flash_attention launched {launches} "
+          f"times; the model has no attention")
+    check(res.tokens.shape == (n, RWKV_GEN) and 0 <= res.tokens.min()
+          and res.tokens.max() < v and bool(torch.isfinite(
+              res.logits[..., :v]).all()) and bool(torch.isfinite(
+                  res.prefill_logits[..., :v]).all()),
+          f"{RWKV_ARCH}: tokens out of range or logits not finite")
+    store = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording(rwkv_mod, "rwkv_block", store, SSM_CHECK):
+        caches, warm = model.prefill(batch, model.init_decode(n, s_max))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    check(torch.equal(warm, res.prefill_logits), f"{RWKV_ARCH}: two "
+          "prefills differ")
+    check(len(store) == cfg.n_layers, f"{RWKV_ARCH}: {len(store)} RWKV "
+          f"blocks in a prefill")
+    t = res.timings
+    log(f"[rwkv] {cfg.name} whole ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {v}; weights {weights / 2**30:.2f} GiB): batch {n}, prompt "
+        f"{s}, {RWKV_GEN} greedy tokens; flash_attention launches "
+        f"{launches}; prefill {t['prefill_s'] * 1e3:.1f} ms first (cold), "
+        f"{t_warm * 1e3:.1f} ms warm, bitwise equal; decode "
+        f"{t['ms_per_step']:.3f} ms/step ({t['tok_s']:.1f} tokens/s); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    p, x = store[cfg.n_layers // 2]
+    del store
+    held = rwkv_holds(f"[rwkv] rwkv_block (layer {cfg.n_layers // 2})", p,
+                      x, cfg, plan)
+    del p, x
+    wall, rec = ssm_prefill_share(model, batch, n, s_max, rwkv_mod,
+                                  "_wkv_scan")
+    log(f"[rwkv] prefill with the per-token recurrences timed (synchronised "
+        f"around each chunk's): {wall * 1e3:.1f} ms, of which the "
+        f"recurrences {rec * 1e3:.1f} ms, share {rec / wall:.4f}")
+    prof = ssm_decode_checks("[rwkv]", model, caches, s,
+                             torch.from_numpy(res.tokens[:, :1]).to(dev))
+    del caches
+    step_bytes = weights - model.tok_embed.numel() * 2
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[rwkv] a decode step reads {step_bytes / 1e9:.2f} GB of weights "
+        f"(all but the embedding table): at least {step_bound:.3f} ms/step "
+        f"at 3.35 TB/s against {t['ms_per_step']:.3f}")
+    del res, model, warm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": t["prefill_s"] * 1e3,
+            "warm_prefill_ms": t_warm * 1e3, "ms_per_step": t["ms_per_step"],
+            "tok_s": t["tok_s"], "peak_gib": peak / 2**30,
+            "weights_gib": weights / 2**30, "step_bound_ms": step_bound,
+            "recurrence_share": rec / wall, "held": held, "profile": prof}
+
+
+def phase_ssm(dev):
+    """Phase 18: Jamba (one 8-layer period at full width), its 24.76 GiB
+    freed, then RWKV6-3B whole."""
+    t_phase = time.perf_counter()
+    out = {"jamba": phase_jamba(dev)}
+    out["rwkv"] = phase_rwkv(dev)
+    log(f"[ssm] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 15: sanitizer and flight recorder
 
 def stacked_fig8(per_channel):
@@ -3809,6 +4270,7 @@ def main():
     phase_lm_padded(dev)
     mla = phase_lm_moe(dev)
     vlm = phase_vlm(dev)
+    ssm = phase_ssm(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -3892,7 +4354,10 @@ def main():
                           f"{RING_ARCH}-{RING_LAYERS}l":
                               mla["ring"]["launches"],
                           "qwen2_vl": vlm["launches"],
-                          "whisper": vlm["whisper"]["launches"]},
+                          "whisper": vlm["whisper"]["launches"],
+                          f"{JAMBA_ARCH}-{JAMBA_LAYERS}l":
+                              ssm["jamba"]["launches"],
+                          RWKV_ARCH: ssm["rwkv"]["launches"]},
         "mla": {k: mla["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")},
@@ -3903,9 +4368,16 @@ def main():
             "bound_share", "max_abs_err")},
         "whisper": {k: vlm["whisper"]["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "max_abs_err")},
+        # and at Jamba's attention layer (GQA 32 / 8, causal, no RoPE)
+        "jamba": {k: ssm["jamba"]["flash"][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")}})
+    # RWKV6-3B has no attention layer: its path launches the kernel no
+    # time (checked in phase 18)
     for path, n in rows[-1]["path_launches"].items():
-        check(n > 0, f"the {path} path launched flash_attention no time")
+        check(n > 0 or path == RWKV_ARCH,
+              f"the {path} path launched flash_attention no time")
     print(json.dumps({"kernels": rows}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

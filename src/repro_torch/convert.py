@@ -3,7 +3,8 @@
 A simulator has no weights; what a replay carries is its config's numeric
 knobs (``MechParams``) and its scan state (``SimState``).  FIGCache-KV
 carries its ``FigKVState`` and an embedding cache its ``EmbedCache``.
-A model carries its parameters and its KV caches.  These helpers take
+A model carries its parameters and its decode caches (KV caches, Mamba's
+and RWKV's recurrent states).  These helpers take
 them as numpy arrays — the JAX package's leaves after ``np.asarray`` — so
 a run started in one package can finish in the other.  Nothing here
 imports the JAX package.
@@ -23,6 +24,8 @@ from repro_torch.device import resolve_device
 from repro_torch.figkv import EmbedCache, FigKVState
 from repro_torch.models import transformer, whisper
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba import MambaState
+from repro_torch.models.rwkv6 import RWKVState
 
 # unbatched rank and dtype of every SimState leaf, in the JAX package's
 # tree-leaves order (NamedTuple fields depth first)
@@ -141,18 +144,26 @@ def embed_cache_from_numpy(leaves: Sequence, device=None) -> EmbedCache:
                       hits=t[-2], lookups=t[-1])
 
 
-def _layers(cfg, groups) -> Iterator[Tuple[object, object]]:
-    """(group entry, index or None) of every layer, in layer order, over
-    the JAX package's scan groups: a group of ``count`` > 1 identical
-    blocks stacks its leaves on a leading axis, a group of one does not."""
+def _sel(a, i):
+    """A leaf as a numpy array, at ``i`` on a stacked group's layer axis
+    (whole when ``i`` is None)."""
+    a = np.asarray(a)
+    return a if i is None else a[i]
+
+
+def _layers(cfg, groups) -> Iterator[Tuple[object, object, object]]:
+    """(group entry, index or None, ``LayerDef``) of every layer, in layer
+    order, over the JAX package's scan groups: a group of ``count`` > 1
+    identical blocks (Jamba's: an 8-layer period) stacks its leaves on a
+    leading axis, a group of one does not."""
     layout = transformer.group_layout(cfg)
     if len(groups) != len(layout):
         raise ValueError(f"expected {len(layout)} layer groups, got "
                          f"{len(groups)}")
     for (count, block), group in zip(layout, groups):
         for i in range(count):
-            for j in range(len(block)):
-                yield group[j], (i if count > 1 else None)
+            for j, d in enumerate(block):
+                yield group[j], (i if count > 1 else None), d
 
 
 def _flat(tree, prefix: str) -> Iterator[Tuple[str, object]]:
@@ -182,7 +193,6 @@ def model_params_from_numpy(cfg, tree: Mapping, device=None
     is ``enc`` / ``dec`` (each stacked), ``enc_ln``, ``dec_ln``,
     ``tok_embed`` and ``pos_embed``."""
     dev = resolve_device(device)
-    transformer.check_ported(cfg)
     if cfg.is_encdec:
         out = dict(_stacked(tree["enc"], "enc", cfg.encoder_layers, dev))
         out.update(_stacked(tree["dec"], "dec", cfg.n_layers, dev))
@@ -196,11 +206,10 @@ def model_params_from_numpy(cfg, tree: Mapping, device=None
            "stack.ln_f": _tensor(tree["stack"]["ln_f"], dev)}
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
-    for n, (layer, i) in enumerate(_layers(cfg, tree["stack"]["groups"])):
+    for n, (layer, i, _) in enumerate(_layers(cfg,
+                                              tree["stack"]["groups"])):
         for path, x in _flat(layer, ""):
-            a = np.asarray(x)
-            out[f"stack.layers.{n}.{path}"] = _tensor(
-                a if i is None else a[i], dev)
+            out[f"stack.layers.{n}.{path}"] = _tensor(_sel(x, i), dev)
     return out
 
 
@@ -208,31 +217,40 @@ def _kv_cache(c, i, dev) -> KVCache:
     """One layer's ``KVCache`` from a JAX KVCache tuple of numpy arrays,
     its leaves indexed at ``i`` on a stacked group's layer axis (or
     taken whole when ``i`` is None); an int8 cache's scales come along."""
-    def sel(a):
-        a = np.asarray(a)
-        return a if i is None else a[i]
     k, v, k_scale, v_scale, length = c
     scales = (None, None) if k_scale is None else \
-        (_tensor(sel(k_scale), dev), _tensor(sel(v_scale), dev))
-    return KVCache(_tensor(sel(k), dev), _tensor(sel(v), dev), *scales,
-                   length=int(sel(length)))
+        (_tensor(_sel(k_scale, i), dev), _tensor(_sel(v_scale, i), dev))
+    return KVCache(_tensor(_sel(k, i), dev), _tensor(_sel(v, i), dev),
+                   *scales, length=int(_sel(length, i)))
+
+
+def _layer_cache(c, i, d, dev):
+    """One layer's cache by its mixer: a Mamba layer's ``(conv, ssm)``
+    becomes a ``MambaState``, an RWKV layer's ``(x_tm, x_cm, wkv)`` an
+    ``RWKVState``, anything else a ``KVCache``."""
+    state = {"mamba": MambaState, "rwkv": RWKVState}.get(d.mixer)
+    if state is None:
+        return _kv_cache(c, i, dev)
+    return state(*[_tensor(_sel(a, i), dev) for a in c])
 
 
 def kv_caches_from_numpy(cfg, tree: Sequence, device=None):
     """The JAX package's decode caches as numpy arrays (``jax.tree.map(
-    np.asarray, caches)``: one list per scan group of KVCache tuples
-    ``(k, v, k_scale, v_scale, length)``) -> the port's per-layer caches,
-    so a JAX prefill can continue in the port's decode.  An int8 cache
-    (codes and f32 scales), an MLA layer's latent cache (c_kv in k, the
-    RoPE key in v) and a sliding-window ring (its length past its slots)
-    carry over as they are.  Whisper's ``(caches, (cross_k, cross_v))``,
-    each stacked over the decoder layers, becomes a ``WhisperCache``."""
+    np.asarray, caches)``: one list per scan group of each layer's cache
+    tuple, stacked on a leading axis in a group of ``count`` > 1) -> the
+    port's per-layer caches, so a JAX prefill can continue in the port's
+    decode.  A KVCache ``(k, v, k_scale, v_scale, length)`` (an int8 cache
+    with its codes and f32 scales, an MLA layer's latent cache with c_kv in
+    k and the RoPE key in v, a sliding-window ring with its length past its
+    slots), a ``MambaState`` ``(conv, ssm)`` and an ``RWKVState`` ``(x_tm,
+    x_cm, wkv)`` carry over as they are.  Whisper's ``(caches, (cross_k,
+    cross_v))``, each stacked over the decoder layers, becomes a
+    ``WhisperCache``."""
     dev = resolve_device(device)
-    transformer.check_ported(cfg)
     if cfg.is_encdec:
         caches, (ck, cv) = tree
         cross = tuple([_tensor(np.asarray(a)[i], dev)
                        for i in range(cfg.n_layers)] for a in (ck, cv))
         return whisper.WhisperCache(
             [_kv_cache(caches, i, dev) for i in range(cfg.n_layers)], cross)
-    return [_kv_cache(c, i, dev) for c, i in _layers(cfg, tree)]
+    return [_layer_cache(c, i, d, dev) for c, i, d in _layers(cfg, tree)]

@@ -6,11 +6,13 @@ a whole model, with optional FIGCache-KV (counterpart of
         --reduced --prompt-len 64 --gen 32 --batch 4 [--figkv]
 
 The standard path uses the exact KV cache (int8 under ``Plan(kv_quant=
-True)``); every layer's prefill attention runs the flash-attention kernel
-on the card.  A VLM (Qwen2-VL) is served with a zero vision prefix of
+True)``); every attention layer's prefill runs the flash-attention kernel
+on the card.  Mamba and RWKV layers carry their recurrent states instead
+(torch ops, one step a token).  A VLM (Qwen2-VL) is served with a zero vision prefix of
 ``n_vision_tokens`` before each prompt, Whisper with random frame
 embeddings for its encoder, as the JAX package serves them.  ``--figkv`` also exercises
-the paper's segment cache on one synthetic layer (``demo_figkv``).  As in
+the paper's segment cache on one synthetic layer (``demo_figkv``), but
+not for an attention-free model (RWKV).  As in
 the JAX package, ``--reduced`` is on by default and the command line
 cannot turn it off; ``run(arch, reduced=False)`` serves the full width.
 """

@@ -1,11 +1,13 @@
 """Top-level model: embeddings + stack + head, prefill / decode.
 
-The port's counterpart of ``repro.models.model`` for decoder-only stacks
-of GQA or MLA attention with dense or MoE FFNs (the LM and MoE families
-and Qwen2-VL's backbone) and for Whisper's encoder-decoder.
+The port's counterpart of ``repro.models.model`` for every config of the
+repo: decoder-only stacks of GQA or MLA attention, Mamba or RWKV-6 mixers
+with dense or MoE FFNs (the LM, MoE, hybrid and ssm families and
+Qwen2-VL's backbone) and Whisper's encoder-decoder.
 ``build_model(cfg, plan, device)`` returns a ``Model``, an ``nn.Module``
 whose parameters mirror the JAX package's tree (``tok_embed``,
-``stack.layers.<i>.attn.wq``, ..., ``stack.ln_f``, ``lm_head``; Whisper's
+``stack.layers.<i>.attn.wq``, ``stack.layers.<i>.mamba.in_proj``,
+``stack.layers.<i>.rwkv.tm.wr``, ..., ``stack.ln_f``, ``lm_head``; Whisper's
 ``enc.<i>...``, ``dec.<i>...``, ``enc_ln``, ``dec_ln``, ``pos_embed``):
 
   init_params(generator)            -> self, weights drawn per leaf
@@ -18,9 +20,11 @@ whose parameters mirror the JAX package's tree (``tok_embed``,
 ``vision_embeds`` (B, Nv, d), placed before the tokens, and
 ``positions3`` (3, B, Nv + S), the (t, h, w) streams of M-RoPE (else every
 stream is the position); Whisper's needs ``audio_embeds`` (B, F, d), and
-its caches are a ``whisper.WhisperCache``.  The MoE layers' summed
-load-balance loss of the last call is ``_last_aux``.  The families with
-modules not ported yet (ssm, hybrid) raise ``NotImplementedError``.
+its caches are a ``whisper.WhisperCache``.  A decoder-only model's
+caches are one per layer: a ``KVCache``, a ``mamba.MambaState`` or an
+``rwkv6.RWKVState``.  A config without RoPE (``rope_theta`` 0: Jamba's
+attention layers, RWKV) gets no RoPE tables.  The MoE layers' summed
+load-balance loss of the last call is ``_last_aux``.
 """
 from __future__ import annotations
 

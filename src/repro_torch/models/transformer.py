@@ -1,14 +1,15 @@
 """Decoder stack: layer layouts, parameter specs, caches and the forward.
 
-The port's counterpart of ``repro.models.transformer`` for stacks whose
-layers mix GQA or MLA attention with a dense or MoE FFN.  The JAX package
-groups identical layers and scans over each group's stacked parameters;
-the port keeps one entry per layer (``stack.layers[i]``, an
-``nn.ModuleList``) and loops over them, so parameters are allocated and
-initialised layer by layer.  ``group_layout`` stays: it is how the JAX
-package's stacked trees are read (``convert.model_params_from_numpy``).
-Mamba and RWKV mixers raise ``NotImplementedError``; Whisper's
-encoder-decoder stack is ``models/whisper.py``.
+The port's counterpart of ``repro.models.transformer``: each layer mixes
+its sequence by GQA or MLA attention, Mamba or RWKV-6, and (but for RWKV,
+whose channel mix is its FFN) feeds a dense or MoE FFN.  The JAX package
+groups identical layers (Jamba: its 8-layer period) and scans over each
+group's stacked parameters; the port keeps one entry per layer
+(``stack.layers[i]``, an ``nn.ModuleList``) and loops over them, so
+parameters are allocated and initialised layer by layer.
+``group_layout`` stays: it is how the JAX package's stacked trees are read
+(``convert.model_params_from_numpy``).  Whisper's encoder-decoder stack is
+``models/whisper.py``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, mamba, moe, rwkv6
 from repro_torch.models.layers import (rms_norm, rms_norm_spec, swiglu,
                                        swiglu_spec)
 from repro_torch.models.plan import Plan
@@ -29,10 +30,6 @@ from repro_torch.models.plan import Plan
 class LayerDef:
     mixer: str           # attn | mla | mamba | rwkv
     ffn: Optional[str]   # dense | moe | None (rwkv: built-in channel mix)
-
-
-PORTED = {LayerDef(mixer, ffn) for mixer in ("attn", "mla")
-          for ffn in ("dense", "moe")}
 
 
 def layer_def(cfg: ModelConfig, i: int) -> LayerDef:
@@ -68,48 +65,48 @@ def group_layout(cfg: ModelConfig) -> List[Tuple[int, List[LayerDef]]]:
     return groups
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is GQA
-    or MLA attention with a dense or MoE FFN (Mamba and RWKV mixers are
-    not ported yet)."""
-    other = sorted({f"{d.mixer}+{d.ffn}" for d in
-                    (layer_def(cfg, i) for i in range(cfg.n_layers))
-                    if d not in PORTED})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}) needs modules the port does "
-            f"not have yet ({', '.join(other)}); the port serves attention "
-            "(GQA, MLA) + dense / MoE FFN stacks and Whisper (ROADMAP.md "
-            "Queue 1)")
-
-
 def _layer_spec(cfg: ModelConfig, plan: Plan, d: LayerDef):
-    attn = attention.mla_spec if d.mixer == "mla" else attention.gqa_spec
+    """An RWKV layer is its block alone (``rwkv``); any other is ``ln_mix``,
+    the mixer (``attn`` or ``mamba``), ``ln_ffn`` and ``ffn``."""
+    if d.mixer == "rwkv":
+        return {"rwkv": rwkv6.rwkv_spec(cfg, plan)}
+    if d.mixer == "mamba":
+        mixer = {"mamba": mamba.mamba_spec(cfg, plan)}
+    elif d.mixer == "mla":
+        mixer = {"attn": attention.mla_spec(cfg, plan)}
+    else:
+        mixer = {"attn": attention.gqa_spec(cfg, plan)}
     ffn = moe.moe_spec(cfg, plan) if d.ffn == "moe" else \
         swiglu_spec(cfg.d_model, plan.padded_ffn(cfg.d_ff))
-    return {"ln_mix": rms_norm_spec(cfg.d_model), "attn": attn(cfg, plan),
+    return {"ln_mix": rms_norm_spec(cfg.d_model), **mixer,
             "ln_ffn": rms_norm_spec(cfg.d_model), "ffn": ffn}
 
 
 def stack_spec(cfg: ModelConfig, plan: Plan):
-    check_ported(cfg)
     return {"layers": [_layer_spec(cfg, plan, layer_def(cfg, i))
                        for i in range(cfg.n_layers)],
             "ln_f": rms_norm_spec(cfg.d_model)}
 
 
 def init_caches(cfg: ModelConfig, plan: Plan, batch: int, s_max: int,
-                device=None) -> List[attention.KVCache]:
-    """One KV cache per layer, int8 under ``plan.kv_quant``: an MLA layer's
-    holds the latent c_kv (k, ``(B, s_max, 1, kv_lora_rank)``) and the RoPE
-    key (v, ``(B, s_max, 1, qk_rope_head_dim)``) in bf16 always, as the
-    reference; a sliding-window layer's is a ring of ``min(s_max, window)``
-    slots."""
+                device=None) -> list:
+    """One cache per layer.  An attention layer's is a ``KVCache``, int8
+    under ``plan.kv_quant``: an MLA layer's holds the latent c_kv (k,
+    ``(B, s_max, 1, kv_lora_rank)``) and the RoPE key (v, ``(B, s_max, 1,
+    qk_rope_head_dim)``) in bf16 always, as the reference; a sliding-window
+    layer's is a ring of ``min(s_max, window)`` slots.  A Mamba layer's is
+    a ``mamba.MambaState``, an RWKV layer's an ``rwkv6.RWKVState`` (zeros,
+    whatever ``s_max``)."""
     hkv = plan.padded_kv_heads(cfg.n_kv_heads)
     s_alloc = min(s_max, cfg.sliding_window) if cfg.sliding_window else s_max
     caches = []
     for i in range(cfg.n_layers):
-        if layer_def(cfg, i).mixer == "mla":
+        mixer = layer_def(cfg, i).mixer
+        if mixer == "rwkv":
+            caches.append(rwkv6.init_state(cfg, batch, device=device))
+        elif mixer == "mamba":
+            caches.append(mamba.init_state(cfg, batch, device=device))
+        elif mixer == "mla":
             m = cfg.mla
             kv = [torch.zeros((batch, s_max, 1, n), dtype=torch.bfloat16,
                               device=device)
@@ -131,12 +128,21 @@ def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(stack["layers"]):
         d = layer_def(cfg, i)
-        mixer = attention.mla_forward if d.mixer == "mla" else \
-            attention.gqa_forward
+        c = None if caches is None else caches[i]
+        if d.mixer == "rwkv":
+            x, nc = rwkv6.rwkv_block(p["rwkv"], x, cfg, plan, state=c)
+            if new_caches is not None:
+                new_caches.append(nc)
+            continue
         h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        y, nc = mixer(p["attn"], h, cfg, plan, rope=rope,
-                      cache=None if caches is None else caches[i],
-                      decode=decode, hmask=hmask)
+        if d.mixer == "mamba":
+            y, nc = mamba.mamba_forward(p["mamba"], h, cfg, plan, state=c,
+                                        decode=decode)
+        else:
+            mixer = attention.mla_forward if d.mixer == "mla" else \
+                attention.gqa_forward
+            y, nc = mixer(p["attn"], h, cfg, plan, rope=rope, cache=c,
+                          decode=decode, hmask=hmask)
         x = x + y
         h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
         if d.ffn == "moe":

@@ -1,7 +1,7 @@
 """The port's LM stack (``repro_torch.models``: GQA and MLA attention,
-dense and MoE FFNs, the sliding-window ring cache, Qwen2-VL's M-RoPE and
-vision prefix; ``launch/serve.run``, ``convert``) against the JAX
-package's ``repro.models``.
+Mamba and RWKV-6 mixers, dense and MoE FFNs, the sliding-window ring
+cache, Qwen2-VL's M-RoPE and vision prefix; ``launch/serve.run``,
+``convert``) against the JAX package's ``repro.models``.
 
 Parameters made by the JAX package go to the port through
 ``convert.model_params_from_numpy``; the same numpy tokens go through
@@ -18,8 +18,11 @@ before the kernel, as the reference's ``attend`` does
 where D^-0.5 is a power of two (D 16), and left the reduced StableLM-12B
 (D 20) and DeepSeek-67B (D 8) 0.234 and 0.504 apart
 (``test_forward_matches_jax_where_the_scale_rounds``).  The reduced
-DeepSeek-V2-Lite's (MLA, D 24) and Mixtral's (ring cache included) logits
-were bitwise equal too."""
+DeepSeek-V2-Lite's (MLA, D 24), Mixtral's (ring cache included), Jamba's
+(Mamba + attention without RoPE, MoE) and RWKV6-3B's logits were bitwise
+equal too."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,10 +43,17 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.model import model_spec
 from repro_torch.models.param import param_count
 
-PORTED = ["qwen2-7b", "qwen1.5-0.5b", "stablelm-12b", "deepseek-67b",
-          "qwen2-vl-72b", "mixtral-8x22b", "deepseek-v2-lite"]
-NOT_PORTED = ["jamba-v0.1-52b", "rwkv6-3b"]
-MOE = ["mixtral-8x22b", "deepseek-v2-lite"]
+# the configs with RoPE (rope_theta > 0)
+ROPE = ["qwen2-7b", "qwen1.5-0.5b", "stablelm-12b", "deepseek-67b",
+        "qwen2-vl-72b", "mixtral-8x22b", "deepseek-v2-lite"]
+SSM = ["jamba-v0.1-52b", "rwkv6-3b"]
+PORTED = ROPE + SSM
+MOE = ["mixtral-8x22b", "deepseek-v2-lite", "jamba-v0.1-52b"]
+# spec-tree parameters that ModelConfig.n_params() leaves out (full width,
+# reduced): Jamba's Mamba layers' conv_b and dt_bias (28 x 2 x 8192 at full
+# width), RWKV's
+N_PARAMS_GAP = {"jamba-v0.1-52b": (458752, 1536),
+                "rwkv6-3b": (205455360, 1536)}
 B, S, S0 = 2, 24, 20
 
 
@@ -87,7 +97,7 @@ def _xla_sincos(a, jit):
 
 
 @pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ROPE)
 def test_rope_sincos_matches_xla_bitwise(arch, jit):
     """``sincosf.sincos_f32`` (the port's RoPE sine and cosine) gives the
     bits of the JAX package's ``jnp.sin`` / ``jnp.cos`` on every RoPE angle
@@ -181,14 +191,22 @@ def test_attend_matches_jax(causal, window, q_offset, kv_len):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_param_count_matches_config(arch):
-    """The spec tree counts the config's parameters plus the vocab
-    padding (256-multiple), at full width (counted, not allocated) and
-    reduced."""
-    for cfg in (tconfigs.get(arch), tconfigs.get_reduced(arch)):
+    """The spec tree counts the JAX package's spec tree's parameters, at
+    full width (counted, not allocated) and reduced: the config's
+    ``n_params()`` plus the vocab padding (256-multiple), and for Jamba
+    and RWKV6-3B plus what ``n_params()`` leaves out (``N_PARAMS_GAP``, a
+    fact about the reference)."""
+    from repro.models.param import param_count as jparam_count
+    for cfg, jcfg, gap in zip(
+            (tconfigs.get(arch), tconfigs.get_reduced(arch)),
+            (jconfigs.get(arch), jconfigs.get_reduced(arch)),
+            N_PARAMS_GAP.get(arch, (0, 0))):
         plan = Plan()
         pad = (plan.padded_vocab(cfg.vocab_size) - cfg.vocab_size) * \
             cfg.d_model * (1 if cfg.tie_embeddings else 2)
-        assert param_count(model_spec(cfg, plan)) == cfg.n_params() + pad
+        count = param_count(model_spec(cfg, plan))
+        assert count == jparam_count(jbuild(jcfg, JPlan()).spec())
+        assert count == cfg.n_params() + pad + gap
     assert param_count(model_spec(tconfigs.get("qwen2-7b"), Plan())) == \
         7_615_616_512
 
@@ -225,12 +243,6 @@ def test_init_params_follow_the_spec():
     for (name, a), b in zip(m.state_dict().items(),
                             again.state_dict().values()):
         assert torch.equal(a, b), name
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not"):
-        build_model(tconfigs.get_reduced(arch), device="cpu")
 
 
 def test_cache_update_past_the_end_raises():
@@ -274,6 +286,16 @@ def _prefill_and_decode(jm, params, tm, toks):
     return pairs, tc, jc
 
 
+@functools.lru_cache(maxsize=None)
+def _served(arch):
+    """``_pair(arch)`` through ``_prefill_and_decode`` on ``_tokens``: (the
+    port's model, the (JAX, port) logits, the port's caches, the JAX
+    package's), once a process."""
+    jm, params, tm = _pair(arch)
+    pairs, tc, jc = _prefill_and_decode(jm, params, tm, _tokens(tm.cfg))
+    return tm, pairs, tc, jc
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_match_jax(arch):
     """prefill of 20 tokens + 4 teacher-forced decode steps; qwen1.5-0.5b
@@ -281,16 +303,17 @@ def test_prefill_and_decode_match_jax(arch):
     StableLM-12B and DeepSeek-67B head dims 20 and 8 (no power of two's
     root), the reduced Qwen2-VL M-RoPE on three equal streams, the reduced
     Mixtral MoE layers and a 64-token ring cache, the reduced
-    DeepSeek-V2-Lite MLA with a dense then an MoE layer."""
-    jm, params, tm = _pair(arch)
-    toks = _tokens(tm.cfg)
+    DeepSeek-V2-Lite MLA with a dense then an MoE layer, the reduced
+    Jamba two 4-layer periods of Mamba and RoPE-free attention layers with
+    dense and MoE FFNs, the reduced RWKV6-3B two RWKV blocks."""
+    tm, pairs, tc, _ = _served(arch)
     v = tm.cfg.vocab_size
-    pairs, tc, _ = _prefill_and_decode(jm, params, tm, toks)
     for step, (a, b) in enumerate(pairs):
         assert b.shape == (B, 1, 512) and b.dtype == torch.float32
         np.testing.assert_allclose(_np(b)[..., :v], _np(a)[..., :v],
                                    atol=2e-2, rtol=0, err_msg=f"step {step}")
-    assert tc[0].length == S0 + 4
+    lengths = [c.length for c in tc if hasattr(c, "length")]
+    assert lengths == [S0 + 4] * len(lengths)
 
 
 @pytest.mark.parametrize("arch,bound", [("stablelm-12b", 1e-5),
@@ -354,11 +377,12 @@ def test_padded_heads_match_jax():
     np.testing.assert_allclose(_np(got), want, atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"] + MOE)
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen1.5-0.5b"] + MOE +
+                         ["rwkv6-3b"])
 def test_decode_matches_forward(arch):
     """prefill + decode_step logits == the full forward's (exact cache;
-    MoE drop-free), as tests/test_models.py:49-76 holds the JAX
-    package."""
+    MoE drop-free; Mamba's and RWKV's carried states), as
+    tests/test_models.py:49-76 holds the JAX package."""
     cfg = tconfigs.get_reduced(arch)
     m = build_model(cfg, Plan(moe_capacity=0), device="cpu").init_params(
         torch.Generator().manual_seed(1))
@@ -428,8 +452,7 @@ def test_mla_latent_cache_matches_jax():
     """After a 20-token prefill and 4 decode steps, every layer's latent
     cache (c_kv in the k slot, the RoPE key in the v slot) and length
     equal the JAX package's, read through ``kv_caches_from_numpy``."""
-    jm, params, tm = _pair("deepseek-v2-lite")
-    _, tc, jc = _prefill_and_decode(jm, params, tm, _tokens(tm.cfg))
+    tm, _, tc, jc = _served("deepseek-v2-lite")
     want = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
                                         device="cpu")
     m = tm.cfg.mla
@@ -464,6 +487,66 @@ def test_jax_prefill_continues_in_port_decode_moe(arch, s_max):
         if arch == "mixtral-8x22b":
             assert tc[1].k.shape[1] == S0 < tc[1].length     # wrapped ring
         for i in range(2, 4):
+            tok = toks[:, S0 + i:S0 + i + 1]
+            jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
+            tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
+            np.testing.assert_allclose(_np(tl)[..., :512], _np(jl)[..., :512],
+                                       atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_recurrent_states_match_jax(arch):
+    """After ``_served``'s 20-token prefill and 4 decode steps, every
+    layer's cache against the JAX package's, read through
+    ``kv_caches_from_numpy``: a Mamba layer's ``MambaState`` (conv bf16,
+    ssm f32), an RWKV layer's ``RWKVState`` (x_tm, x_cm bf16, wkv f32),
+    Jamba's attention layers' KV caches.  Shapes and dtypes equal; the
+    bf16 leaves within 2e-2 plus one bf16 ulp (bitwise on the CPU these
+    tests were written on), the f32 recurrent states within 1e-4 (7.2e-7
+    there: the f32 reductions round apart)."""
+    from repro_torch.models import transformer
+    tm, _, tc, jc = _served(arch)
+    want = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                        device="cpu")
+    kinds = [transformer.layer_def(tm.cfg, i).mixer
+             for i in range(tm.cfg.n_layers)]
+    assert len(tc) == len(want) == len(kinds)
+    names = {"mamba": "MambaState", "rwkv": "RWKVState", "attn": "KVCache"}
+    for i, (kind, got, ref) in enumerate(zip(kinds, tc, want)):
+        assert type(got) is type(ref) and type(got).__name__ == names[kind]
+        fields = type(ref)._fields
+        if kind == "attn":
+            assert got.length == ref.length == S0 + 4
+            fields, got, ref = fields[:2], got[:2], ref[:2]
+        for name, a, b in zip(fields, got, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype, (i, name)
+            if a.dtype == torch.float32:
+                assert float((a - b).abs().max()) <= 1e-4, (i, name)
+            else:
+                assert _ulp_excess(a, b) <= 2e-2, (i, name)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_jax_prefill_continues_in_port_decode_ssm(arch):
+    """A jitted JAX prefill's caches (Mamba's conv / ssm states, RWKV's
+    token-shift inputs and wkv states, Jamba's attention KV caches) go to
+    the port (``kv_caches_from_numpy``) and the port decodes on: the same
+    logits as the eager JAX decode from the same caches."""
+    jm, params, tm = _pair(arch, seed=3)
+    toks = _tokens(tm.cfg, seed=4)
+    jc = jm.init_decode(B, 32)
+    jc, _ = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(toks[:, :S0])},
+                                jc)
+    tc = convert.kv_caches_from_numpy(tm.cfg, jax.tree.map(np.asarray, jc),
+                                      device="cpu")
+    own = tm.init_decode(B, 32)
+    assert [type(c) for c in tc] == [type(c) for c in own]
+    for got, ref in zip(tc, own):
+        for a, b in zip(got, ref):
+            if isinstance(b, torch.Tensor):
+                assert a.shape == b.shape and a.dtype == b.dtype
+    with jax.disable_jit():
+        for i in range(3):
             tok = toks[:, S0 + i:S0 + i + 1]
             jc, jl = jm.decode_step(params, jc, jnp.asarray(tok), S0 + i)
             tc, tl = tm.decode_step(tc, torch.from_numpy(tok), S0 + i)
@@ -720,6 +803,25 @@ def test_serve_run_moe_on_cpu():
     seq = torch.cat([res.prompt, torch.from_numpy(res.tokens[:, :-1])], 1)
     full = res.model.forward({"tokens": seq})
     np.testing.assert_array_equal(full[:, 15:].argmax(-1).numpy(), res.tokens)
+
+@pytest.mark.parametrize("arch", SSM)
+def test_serve_run_ssm_on_cpu(arch, monkeypatch):
+    """``serve.run(..., figkv=True)`` of the reduced Jamba and RWKV6-3B on
+    the CPU: greedy tokens are the argmax of a teacher-forced forward over
+    prompt + output; RWKV is attention-free, so the FIGCache-KV demo is
+    skipped, as the JAX package skips it; Jamba's runs."""
+    demos = []
+    monkeypatch.setattr(serve, "demo_figkv",
+                        lambda *a, **k: demos.append(a[0].name))
+    res = serve.run(arch, prompt_len=16, gen=4, batch=2, seed=5, figkv=True,
+                    device="cpu")
+    assert demos == ([] if res.model.cfg.attn_free else [res.model.cfg.name])
+    assert res.tokens.shape == (2, 4)
+    assert bool(torch.isfinite(res.logits[..., :512]).all())
+    seq = torch.cat([res.prompt, torch.from_numpy(res.tokens[:, :-1])], 1)
+    full = res.model.forward({"tokens": seq})
+    np.testing.assert_array_equal(full[:, 15:].argmax(-1).numpy(), res.tokens)
+
 
 def test_serve_main_needs_cuda(monkeypatch):
     """The command line runs on the card; without one it raises."""
