@@ -1,9 +1,9 @@
 """Build and run the PyTorch port of FIGCache on one CUDA card: the DRAM
 simulator (its controllers, streamed replay, chunk codec, checkpoints,
 device workload generator and fault-tolerant sweep orchestrator too), the
-FIGCache-KV serving path and the LM serving paths (dense; MoE with MLA;
+FIGCache-KV serving path, the LM serving paths (dense; MoE with MLA;
 the sliding-window ring cache; a VLM with the int8 KV cache; Whisper;
-Mamba in Jamba and RWKV-6).
+Mamba in Jamba and RWKV-6) and training on one device.
 
     python3 chip_smoke.py
 
@@ -254,7 +254,39 @@ Phases, each of which raises (non-zero exit) on any failed check:
    share of a prefill spent in the per-token recurrences
    (``mamba._recurrence``, ``rwkv6._wkv_scan``; synchronised around each
    chunk's);
-19. summary: one ``{"kernels": [...]}`` JSON line (device times from
+19. training: one train step (``launch.steps.make_train_step``: value and
+   grad of ``Model.loss``, AdamW, the bf16 weights written back) on the
+   card and the loss and gradients on the CPU in f32 from the same
+   weights and batch, for Qwen1.5-0.5B at full width cut to 2 of 24
+   layers (B 1, S 512) and Whisper-tiny whole (B 2, prompt 128, f32 frame
+   embeddings, so its encoder runs in f32), the weights seeded and the
+   attention projections rescaled to the usual fan-in
+   (``fan_in_attention``: the reference's initialiser saturates the
+   softmax at full width, and then even f32 gradients of two correct
+   computations differ O(1)): the bf16 step's loss within 2e-2 and every
+   leaf's gradient (taken where AdamW receives it) finite, nonzero and
+   within 0.1 relative L2 of the f32 CPU's; the same weights in f32 on
+   the card, the loss within 1e-4 and every gradient within 1e-3
+   (``TRAIN_*_TOL``); flash_attention's launches in the step (each
+   layer's forward and, under remat, its recompute; the f32 loss and
+   backward checked to launch it as often); then the bf16 loss
+   and backward with the kernel called without
+   ``kernels.flash_attention.ops.MHA`` (the port before its repair),
+   whose q / k / v projections get no gradient (printed, and checked to
+   be so); then Qwen1.5-0.5B whole (24 layers, vocab 151936, tied,
+   the reference's initialiser) through ``train.run(reduced=False)`` on
+   train_4k's S 4096 with the batch cut from 256 to 8 (remat, one
+   microbatch, chunked CE, as ``make_plan`` gives), 6 steps: step ms
+   (median after the first), tokens/s, peak memory, the loss first to
+   last (finite; the last below the first, the last three's mean below
+   the first three's), launches a step, and 6 N tokens / step / 989
+   TFLOP/s; the kernel on the first attention call's own bf16 inputs
+   from that run (layer 0, step 1: B 8, S 4096, 16 heads of 64, causal)
+   within 2e-2 plus one bf16 ulp of plain; then a step profiled (device busy time and its top ops, the
+   idle share against the median step) and one with the attention
+   backward and the CE chunks synchronised around, their shares of the
+   step;
+20. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
@@ -267,7 +299,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    0 around its prefill, in ``path_launches``, and its times at MLA's,
    Qwen2-VL's and Whisper's encoder's shapes in ``mla``, ``qwen2_vl`` and
    ``whisper``, and at Jamba's in ``jamba``; RWKV6-3B's path launches it
-   no time),
+   no time; the trainer's, ``train``, counted around phase 19's run),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -341,6 +373,10 @@ from repro_torch.models.transformer import \
 from repro_torch.models import whisper as whisper_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv_mod  # noqa: E402
+from repro_torch.data import DataPipeline  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
@@ -398,6 +434,26 @@ JAMBA_ARCH, JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = \
     "jamba-v0.1-52b", 8, 4, 2048, 64
 RWKV_ARCH, RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = "rwkv6-3b", 4, 1024, 64
 SSM_CHECK, SSM_DECODE = 256, 4
+
+# training (phase 19): one step on the card and on the CPU from the same
+# weights and batch, Qwen1.5-0.5B at full width cut to 2 of 24 layers (B 1,
+# S 512) and Whisper-tiny whole (B 2, prompt 128, f32 audio embeddings);
+# the attention projections at the usual fan-in (``fan_in_attention``: the
+# reference's initialiser saturates full-width softmaxes, which makes two
+# correct computations' gradients O(1) apart); the bf16 step's loss within
+# TRAIN_LOSS_TOL of the CPU's f32 loss and each leaf's gradient within
+# TRAIN_BF16_GRAD_TOL relative L2 of the CPU's f32 one (bf16 rounding), the
+# same weights in f32 on the card within TRAIN_F32_GRAD_TOL; then
+# Qwen1.5-0.5B whole through
+# ``train.run(reduced=False)`` on train_4k's S 4096 with the batch cut from
+# 256 to TRAIN_BATCH
+TRAIN_ARCH, TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = \
+    "qwen1.5-0.5b", 2, 1, 512
+TRAIN_ASR_B, TRAIN_ASR_S = 2, 128
+TRAIN_F32_GRAD_TOL, TRAIN_BF16_GRAD_TOL = 1e-3, 0.1
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS = "train_4k", 8, 6
+H100_BF16_FLOPS = 989e12                         # dense bf16, H100 SXM
 
 # tests/test_obs.py's controllers
 SCHEDS = {
@@ -2599,16 +2655,18 @@ def phase_figkv(dev):
 # ---------------------------------------------------------------------------
 # phase 6: where a simulator step's time goes
 
-def profile_replay(label, replay, steps):
+def profile_replay(label, replay, steps, wall=None):
     """Device busy time of ``replay()`` (``steps`` steps, ending in a
     synchronise) from CUPTI, against the wall time of the same replay run
-    unprofiled; the device ops that take the time."""
+    unprofiled (``wall`` seconds where the caller has measured it, else
+    timed here after a warm-up run); the device ops that take the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    replay()
-    t0 = time.perf_counter()
-    replay()
-    wall = time.perf_counter() - t0
+    if wall is None:
+        replay()
+        t0 = time.perf_counter()
+        replay()
+        wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         replay()
@@ -4088,6 +4146,338 @@ def phase_ssm(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: training on one device
+
+def train_batch(cfg, seq, batch, dev):
+    """The data pipeline's first batch (seed 0) as tensors on ``dev``."""
+    shape = configs.ShapeConfig("check", "train", seq, batch)
+    nb = DataPipeline(cfg, shape, seed=0).get()
+    return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+
+
+def cpu_grads(cfg, plan, state, batch):
+    """Loss and every parameter's gradient of ``cfg`` on the CPU in f32,
+    from the card model's weights (``state``, their bf16 values held in
+    f32) and the same batch."""
+    model = build_model(cfg, plan, device="cpu").float()
+    model.load_state_dict({k: v.cpu() for k, v in state.items()})
+    model.trainable()
+    t0 = time.perf_counter()
+    loss, _ = model.loss({k: v.cpu() for k, v in batch.items()})
+    loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    return loss.item(), grads, time.perf_counter() - t0
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float().cpu() - want).norm() /
+                 want.norm().clamp_min(1e-30))
+
+
+@torch.no_grad()
+def fan_in_attention(model):
+    """Rescale the attention projections to the usual fan-in, std
+    d_in^-0.5: wq / wk / wv (d, H, D) read d inputs and wo (H, D, d) H * D,
+    where the reference's initialiser takes ``shape[-2]`` (H, D).  Its
+    std makes full-width scores large enough to saturate the softmax, and
+    a saturated softmax turns the card's and the CPU's last-bit
+    differences into O(1) gradient differences, in f32 too (Whisper-tiny:
+    every attention op within 1.2e-5 of the CPU's on the same inputs, its
+    f32 loss 0.0074 and its gradients 1.45 relative L2 apart; PERF.md
+    §6)."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() == 3 and leaf in ("wq", "wk", "wv", "wo"):
+            fan = p.shape[0] * (p.shape[1] if leaf == "wo" else 1)
+            p.mul_((p.shape[-2] / fan) ** 0.5)
+
+
+def train_card_vs_cpu(dev, cfg, batch_n, seq):
+    """One bf16 train step of ``cfg`` on the card from seeded weights with
+    the attention projections at the usual fan-in (``fan_in_attention``):
+    its gradients, taken where AdamW receives them, finite, nonzero and
+    within ``TRAIN_BF16_GRAD_TOL`` relative L2 of the CPU's f32 gradients
+    from the same weights and batch, its loss within ``TRAIN_LOSS_TOL``;
+    flash_attention's launches counted around it.  Then the same weights
+    held in f32 on the card: the loss within 1e-4 and every gradient (the
+    f32 kernel inside ``ops.MHA``, the reference's backward, remat, the CE)
+    within ``TRAIN_F32_GRAD_TOL`` of the CPU's.  Last, the bf16 loss and
+    backward with the kernel called straight, not through ``ops.MHA`` (the
+    port before its repair): the attention projections then get no
+    gradient (fault 1's regression check)."""
+    plan = steps_lib.make_plan(cfg, configs.ShapeConfig("check", "train",
+                                                        seq, batch_n))
+    model = build_model(cfg, plan, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(7))
+    fan_in_attention(model)
+    hyper = steps_lib.Hyper(peak_lr=1e-3, warmup=10, total_steps=10)
+    state = steps_lib.init_train_state(model, None, hyper)
+    batch = train_batch(cfg, seq, batch_n, dev)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    seen = []
+    real_update = steps_lib.adamw_update
+
+    def spy(grads, opt, **kw):
+        seen.append(grads)
+        return real_update(grads, opt, **kw)
+
+    step = steps_lib.make_train_step(model, hyper)
+    flash_kernel.COUNTER.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(steps_lib, adamw_update=spy):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = flash_kernel.COUNTER.launches
+    loss = metrics["loss"].item()
+    for n, g in seen[0].items():
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"{cfg.name}: {n}'s gradient on the card is zero or not finite")
+    del state
+    cpu_loss, exact, cpu_s = cpu_grads(cfg, plan, weights, batch)
+    check(abs(loss - cpu_loss) <= TRAIN_LOSS_TOL and np.isfinite(loss),
+          f"{cfg.name}: bf16 train loss on the card {loss} vs the f32 "
+          f"CPU's {cpu_loss}")
+
+    # the same weights in f32 on the card
+    m32 = build_model(cfg, plan, device=dev).float()
+    m32.load_state_dict(weights)
+    m32.trainable()
+    flash_kernel.COUNTER.launches = 0
+    loss32 = m32.loss(batch)[0]
+    loss32.backward()
+    launches32 = flash_kernel.COUNTER.launches
+    rows = []                 # (card f32 vs CPU f32, card bf16 vs CPU f32)
+    for n, p in m32.named_parameters():
+        check(bool(torch.isfinite(p.grad).all()), f"{cfg.name}: {n}'s f32 "
+              "gradient on the card is not finite")
+        rows.append((rel_l2(p.grad, exact[n]), rel_l2(seen[0][n], exact[n]),
+                     n))
+    del m32
+    worst = max(rows)
+    log(f"[train] {cfg.name} ({cfg.n_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}, "
+        f"d {cfg.d_model}, vocab {cfg.vocab_size}) B {batch_n} S {seq}: "
+        f"one bf16 step on the card {card_s * 1e3:.1f} ms (first call), "
+        f"loss {loss:.6f}, the f32 CPU's {cpu_loss:.6f} (|diff| "
+        f"{abs(loss - cpu_loss):.3g}, tolerance {TRAIN_LOSS_TOL}); "
+        f"flash_attention launches in the step {launches} (f32 forward and "
+        f"backward {launches32}); f32 on the card: loss {loss32.item():.6f} "
+        f"(|diff| {abs(loss32.item() - cpu_loss):.3g}), {len(rows)} leaves' "
+        f"gradients within max {worst[0]:.4g} ({worst[2]}), median "
+        f"{statistics.median(r[0] for r in rows):.4g} relative L2 of the "
+        f"CPU's (tolerance {TRAIN_F32_GRAD_TOL}); the bf16 step's gradients "
+        f"median {statistics.median(r[1] for r in rows):.4g}, max "
+        f"{max(r[1] for r in rows):.4g} from them (tolerance "
+        f"{TRAIN_BF16_GRAD_TOL}); CPU f32 forward + backward {cpu_s:.1f} s")
+    check(abs(loss32.item() - cpu_loss) <= 1e-4, f"{cfg.name}: f32 loss on "
+          f"the card {loss32.item()} vs the CPU's {cpu_loss}")
+    check(launches32 == launches, f"{cfg.name}: flash_attention launched "
+          f"{launches32} times in the f32 loss and backward, {launches} in "
+          f"the bf16 step (the same plan)")
+    for a, b, n in rows:
+        check(a <= TRAIN_F32_GRAD_TOL and b <= TRAIN_BF16_GRAD_TOL,
+              f"{cfg.name}: {n}'s gradient on the card is {a:.4g} (f32) / "
+              f"{b:.4g} (bf16 step) relative L2 from the CPU's f32 one")
+
+    # fault 1: the kernel straight, as before ``ops.MHA``
+    def bypass(q, k, v, *, causal=True, window=0, scale=None):
+        return flash_kernel.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=causal,
+                                            window=window, scale=scale)
+
+    model.load_state_dict(weights)
+    for p in model.parameters():
+        p.grad = None
+    with patched(attention, mha=bypass):
+        model.loss(batch)[0].backward()
+    lost = [n for n, p in model.named_parameters()
+            if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "bq", "bk", "bv")
+            and ".xattn." not in n
+            and (p.grad is None or float(p.grad.abs().max()) == 0)]
+    kept = [n for n, p in model.named_parameters()
+            if n.endswith("attn.wo") and p.grad is not None
+            and float(p.grad.abs().max()) > 0]
+    n_self = sum(1 for n, _ in model.named_parameters()
+                 if n.endswith(".wq") and ".xattn." not in n)
+    log(f"[train] {cfg.name} fault-1 check, the kernel called without "
+        f"ops.MHA: {len(lost)} q/k/v projection leaves of {n_self} "
+        f"self-attention layers got no gradient (None or zero), {len(kept)} "
+        f"output projections still did")
+    check(len(lost) >= 3 * n_self, f"{cfg.name}: without ops.MHA the q/k/v "
+          f"projections still got gradients ({lost})")
+    del model, seen, exact
+    torch.cuda.empty_cache()
+    return {"launches": launches, "loss": loss, "cpu_loss": cpu_loss,
+            "f32_max_rel": worst[0], "worst": worst[2],
+            "bypass_lost": len(lost)}
+
+
+def phase_train(dev):
+    """Phase 19: training.  (a) Qwen1.5-0.5B at full width, 2 layers, and
+    Whisper-tiny whole, one step each on the card against the CPU; (b)
+    Qwen1.5-0.5B whole through ``train.run(reduced=False)`` on train_4k's
+    sequence length with the batch cut to TRAIN_BATCH."""
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    out["qwen_check"] = train_card_vs_cpu(dev, cfg, TRAIN_CHECK_B,
+                                          TRAIN_CHECK_S)
+    check(out["qwen_check"]["launches"] == 2 * TRAIN_CHECK_LAYERS,
+          f"{TRAIN_ARCH}: flash_attention launched "
+          f"{out['qwen_check']['launches']} times in a step, expected "
+          f"{2 * TRAIN_CHECK_LAYERS} (each layer's forward and its remat "
+          f"recompute)")
+    asr = configs.get(ASR_ARCH)
+    out["whisper_check"] = train_card_vs_cpu(dev, asr, TRAIN_ASR_B,
+                                             TRAIN_ASR_S)
+    n_asr = asr.encoder_layers + asr.n_layers
+    check(out["whisper_check"]["launches"] == n_asr,
+          f"{ASR_ARCH}: flash_attention launched "
+          f"{out['whisper_check']['launches']} times in a step, expected "
+          f"{n_asr}")
+
+    # (b) the whole model through the trainer's entry point
+    full = configs.get(TRAIN_ARCH)
+    shape = configs.SHAPES[TRAIN_SHAPE]
+    plan = steps_lib.make_plan(full, configs.ShapeConfig(
+        shape.name, shape.kind, shape.seq_len, TRAIN_BATCH))
+    check(plan.remat == "full" and plan.microbatches == 1 and
+          plan.opt_chunked_ce and shape.seq_len >= 2048,
+          f"{TRAIN_ARCH}: make_plan gave {plan}")
+    # the first attention call's inputs (layer 0, step 1) are kept, so
+    # that the kernel is held against plain at the trainer's own shape
+    inputs = []
+    real_mha = attention.mha
+
+    def recording(q, k, v, **kw):
+        if not inputs:
+            inputs.append(([x.detach().clone() for x in (q, k, v)], kw))
+        return real_mha(q, k, v, **kw)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_kernel.COUNTER.launches = 0
+    t0 = time.perf_counter()
+    with patched(attention, mha=recording):
+        run = train_lib.run(TRAIN_ARCH, TRAIN_SHAPE, steps=TRAIN_STEPS,
+                            reduced=False, batch_override=TRAIN_BATCH,
+                            log_every=1, device=dev)
+    wall = time.perf_counter() - t0
+    launches = flash_kernel.COUNTER.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = [l for _, l in run.losses]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and
+          losses[-1] < losses[0] and np.mean(losses[-3:]) <
+          np.mean(losses[:3]), f"{TRAIN_ARCH}: losses {losses}")
+    check(launches == TRAIN_STEPS * 2 * full.n_layers,
+          f"{TRAIN_ARCH}: flash_attention launched {launches} times in "
+          f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS * 2 * full.n_layers}")
+    (q, k, v), kw = inputs.pop()
+    with torch.no_grad():
+        got = real_mha(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    excess = ulp_excess(got, want)
+    log(f"[train] {TRAIN_ARCH}: the kernel on layer 0's attention inputs "
+        f"from the first step, q {tuple(q.shape)} {q.dtype}, k/v "
+        f"{tuple(k.shape)}, {kw}: max abs {err:.4g} from plain, beyond one "
+        f"bf16 ulp {excess:.4g} (held to 2e-2)")
+    check(q.dtype == torch.bfloat16 and kw.get("causal") and
+          tuple(q.shape) == (TRAIN_BATCH, shape.seq_len, full.n_heads,
+                             full.hd) and excess <= 2e-2,
+          f"{TRAIN_ARCH}: kernel vs plain on the trainer's attention inputs "
+          f"q {tuple(q.shape)} {q.dtype} {kw}: max abs {err}, beyond one "
+          f"bf16 ulp {excess}")
+    del q, k, v, got, want
+    step_ms = statistics.median(run.step_s[1:]) * 1e3
+    tokens = TRAIN_BATCH * shape.seq_len
+    n_params = full.n_params()
+    flop = 6 * n_params * tokens
+    mfu = flop / (step_ms / 1e3) / H100_BF16_FLOPS
+    log(f"[train] {TRAIN_ARCH} whole ({full.n_layers} layers, d "
+        f"{full.d_model}, vocab {full.vocab_size}, tied, {n_params / 1e6:.1f}M "
+        f"parameters) on {TRAIN_SHAPE}'s S {shape.seq_len}, batch "
+        f"{TRAIN_BATCH} (cut from {shape.global_batch}), {plan.remat} remat, "
+        f"{plan.microbatches} microbatch, chunked CE: {TRAIN_STEPS} steps "
+        f"through train.run in {wall:.1f} s; step ms first "
+        f"{run.step_s[0] * 1e3:.1f}, median after "
+        f"{step_ms:.1f} ({[round(x * 1e3, 1) for x in run.step_s]}); "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s; peak "
+        f"{peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({[round(x, 4) for x in losses]}); flash_attention launches "
+        f"{launches / TRAIN_STEPS:.0f} a step; 6 N tokens / step / 989 "
+        f"TFLOP/s = {mfu:.4f}")
+    out["run"] = {"launches": launches, "step_ms": step_ms,
+                  "kernel_err": err, "kernel_ulp_excess": excess,
+                  "first_step_ms": run.step_s[0] * 1e3,
+                  "tok_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+                  "losses": losses, "mfu": mfu}
+    out["profile"] = train_step_profile(dev, full, plan, shape.seq_len,
+                                        step_ms / 1e3)
+    log(f"[train] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def train_step_profile(dev, cfg, plan, seq, step_s):
+    """Where a full-width train step's time goes: a step profiled (device
+    busy time and the ops that take it, the idle share against
+    ``step_s``, the trainer's median step), then one step with
+    ``ops.MHA``'s backward (the reference's plain attention backward) and
+    the CE chunks' forwards (``layers._ce_chunk``, run again in the
+    backward's recompute) each synchronised around, their shares of that
+    step."""
+    model = build_model(cfg, plan, device=dev)
+    hyper = steps_lib.Hyper(peak_lr=1e-3, warmup=10, total_steps=10)
+    state = [steps_lib.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), hyper)]
+    step = steps_lib.make_train_step(model, hyper)
+    batch = train_batch(cfg, seq, TRAIN_BATCH, dev)
+
+    def one():
+        state[0], _ = step(state[0], batch)
+        torch.cuda.synchronize()
+
+    prof = profile_replay(f"{cfg.name} train step B={TRAIN_BATCH} S={seq}",
+                          one, 1, wall=step_s)
+    spent = {"attention backward": 0.0, "CE chunks": 0.0}
+
+    def synced(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return res
+        return wrapper
+
+    backward = flash_ops.MHA.__dict__["backward"]
+    flash_ops.MHA.backward = staticmethod(
+        synced("attention backward", backward.__func__))
+    try:
+        with patched(layers_mod, _ce_chunk=synced("CE chunks",
+                                                  layers_mod._ce_chunk)):
+            t0 = time.perf_counter()
+            one()
+            wall = time.perf_counter() - t0
+    finally:
+        flash_ops.MHA.backward = backward
+    shares = {k: v / wall for k, v in spent.items()}
+    log(f"[train] one synchronised step {wall * 1e3:.1f} ms: "
+        + ", ".join(f"{k} {spent[k] * 1e3:.1f} ms ({shares[k]:.4f})"
+                    for k in spent)
+        + f"; a CE chunk's f32 logits {TRAIN_BATCH} x 1024 x "
+        f"{plan.padded_vocab(cfg.vocab_size)} are "
+        f"{TRAIN_BATCH * 1024 * plan.padded_vocab(cfg.vocab_size) * 4 / 2 ** 30:.2f} GiB")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(prof, synced_step_ms=wall * 1e3, shares=shares)
+
+
+# ---------------------------------------------------------------------------
 # phase 15: sanitizer and flight recorder
 
 def stacked_fig8(per_channel):
@@ -4271,6 +4661,7 @@ def main():
     mla = phase_lm_moe(dev)
     vlm = phase_vlm(dev)
     ssm = phase_ssm(dev)
+    trained = phase_train(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -4357,7 +4748,8 @@ def main():
                           "whisper": vlm["whisper"]["launches"],
                           f"{JAMBA_ARCH}-{JAMBA_LAYERS}l":
                               ssm["jamba"]["launches"],
-                          RWKV_ARCH: ssm["rwkv"]["launches"]},
+                          RWKV_ARCH: ssm["rwkv"]["launches"],
+                          "train": trained["run"]["launches"]},
         "mla": {k: mla["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")},

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, matmul
 from repro_torch.models.param import Spec
 from repro_torch.models.plan import Plan
 
@@ -209,9 +209,10 @@ def prefill_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) @ w (d, h, k) -> (B, S, h, k)."""
+    """x (B, S, d) @ w (d, h, k) -> (B, S, h, k), in the promoted dtype
+    (``layers.matmul``)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    return matmul(x, w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
 def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,

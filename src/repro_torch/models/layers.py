@@ -1,6 +1,6 @@
 """Shared NN building blocks: RMS and layer norms, RoPE and Qwen2-VL's
 M-RoPE, Whisper's sinusoids, SwiGLU and GELU FFNs, embeddings, LM head,
-weight-only int8.
+cross-entropy (whole and chunked), weight-only int8.
 
 The port's counterpart of ``repro.models.layers``, with the reference's
 casts step for step: bf16 storage and matmuls, f32 norm statistics, RoPE
@@ -13,12 +13,23 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.workload.xla_math import tanh_f32
 from repro_torch.models.param import Spec
 from repro_torch.models.sincosf import sincos_f32
 
 NEG = -1e30
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp``'s matmul: an
+    f32 activation against a bf16 weight (Whisper's encoder on f32 frame
+    embeddings) reads the weight in f32.  Of one dtype, plain ``x @ w``."""
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
 
 
 def rms_norm_spec(d: int) -> Spec:
@@ -135,6 +146,24 @@ _GELU_CONSTS = tuple(torch.tensor(c, dtype=torch.float32)
                      for c in (_SQRT_2_OVER_PI, 0.044715, 0.5, 1.0))
 
 
+class _Tanh(torch.autograd.Function):
+    """``tanh_f32`` with JAX's derivative of ``tanh``, ``(g + g y)(1 - y)``
+    on the forward's y.  ``tanh_f32`` reads its input's bits through an
+    integer view, which autograd cannot differentiate: without this the
+    tanh term of GELU's gradient was lost."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = tanh_f32(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return (g + g * y) * (1 - y)
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(x, approximate=True)`` of an f32 tensor, one rounded
     f32 operation at a time in the reference's order: ``x * (x * x)``,
@@ -142,17 +171,18 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     tanh is XLA's (``tanh_f32``).  Bitwise the eager reference; torch's
     ``gelu(approximate="tanh")`` differs on a third of inputs.  The
     constants are f32 scalars on the host: only multiplied and added, they
-    give the same bits as device tensors and cost no copy."""
+    give the same bits as device tensors and cost no copy.  The tanh's
+    gradient is JAX's (``_Tanh``)."""
     c_sqrt, c_cube, c_half, c_one = _GELU_CONSTS
     inner = c_sqrt * (x + c_cube * (x * (x * x)))
-    return x * (c_half * (c_one + tanh_f32(inner)))
+    return x * (c_half * (c_one + _Tanh.apply(inner)))
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """Up projection plus bias, GELU (tanh form) in f32, cast to x's dtype,
     down projection plus bias."""
-    h = gelu_tanh((x @ p["wi"] + p["bi"]).float())
-    return h.to(x.dtype) @ p["wo"] + p["bo"]
+    h = gelu_tanh((matmul(x, p["wi"]) + p["bi"]).float())
+    return matmul(h.to(x.dtype), p["wo"]) + p["bo"]
 
 
 def embed_spec(vocab_padded: int, d: int, tied: bool = True) -> Spec:
@@ -176,6 +206,55 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor,
         pad = torch.arange(vp, device=logits.device) >= vocab_logical
         logits = logits.masked_fill(pad, NEG)
     return logits
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+             ignore_id: int = -1):
+    """(sum of -log p(target) over the non-ignored targets, their count):
+    logits f32 (..., V), targets (...)."""
+    valid = targets != ignore_id
+    tgt = torch.clamp(targets, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean CE over the targets that are not ``ignore_id``; logits f32
+    (B, S, V)."""
+    nll, cnt = _nll_sum(logits, targets, ignore_id)
+    return nll / torch.clamp(cnt, min=1)
+
+
+def _ce_chunk(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+              vocab_logical: int, transpose: bool):
+    return _nll_sum(lm_logits(x, head, vocab_logical, transpose), targets)
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               vocab_logical: int, *, transpose: bool,
+               chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy of the LM head over x (B, S, d) without holding the
+    (B, S, V) logits: chunks of ``chunk`` positions along S, each chunk's
+    logits recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint(nothing_saveable)`` scan body), so one
+    chunk's logits are live at a time in the forward and in the backward.
+    The chunks' sums are added in order, as the reference's scan.  A
+    sequence of one chunk or less, or not a multiple of it, takes the
+    whole logits."""
+    b, s, _ = x.shape
+    if s % chunk or s <= chunk:
+        return cross_entropy(lm_logits(x, head, vocab_logical, transpose),
+                             targets)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, s, chunk):
+        n, c = checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head,
+                          targets[:, c0:c0 + chunk], vocab_logical, transpose,
+                          use_reentrant=False)
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp(cnt, min=1)
 
 
 def quantize_int8(w: torch.Tensor):

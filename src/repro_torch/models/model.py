@@ -11,6 +11,7 @@ whose parameters mirror the JAX package's tree (``tok_embed``,
 ``enc.<i>...``, ``dec.<i>...``, ``enc_ln``, ``dec_ln``, ``pos_embed``):
 
   init_params(generator)            -> self, weights drawn per leaf
+  loss(batch)                       -> (loss, {"ce", "aux"})  [train]
   forward(batch)                    -> logits (B, S, Vp) f32
   init_decode(batch, s_max)         -> caches
   prefill(batch, caches)            -> (caches, last_logits (B, 1, Vp))
@@ -25,6 +26,11 @@ caches are one per layer: a ``KVCache``, a ``mamba.MambaState`` or an
 ``rwkv6.RWKVState``.  A config without RoPE (``rope_theta`` 0: Jamba's
 attention layers, RWKV) gets no RoPE tables.  The MoE layers' summed
 load-balance loss of the last call is ``_last_aux``.
+
+``forward``, ``prefill`` and ``decode_step`` serve: they record no
+autograd graph.  ``loss`` trains: it records one, and its batch adds
+``targets`` (B, S) (-1 ignored); the parameters take gradients once
+``trainable()`` has turned them on.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer, whisper
-from repro_torch.models.layers import (embed_lookup, embed_spec, lm_logits,
+from repro_torch.models.layers import (chunked_ce, cross_entropy,
+                                       embed_lookup, embed_spec, lm_logits,
                                        mrope_angles, rope_angles,
                                        rope_tables)
 from repro_torch.models.param import ParamTree, Spec
@@ -73,11 +80,14 @@ class Model(ParamTree):
                                             cfg.mrope_sections))
         return rope_tables(rope_angles(positions, dim, cfg.rope_theta))
 
+    def _head_weight(self):
+        """(LM head weight, whether it is the transposed embedding)."""
+        tied = self.cfg.tie_embeddings or self.cfg.is_encdec
+        return (self.tok_embed if tied else self.lm_head), tied
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        tied = cfg.tie_embeddings or cfg.is_encdec
-        head = self.tok_embed if tied else self.lm_head
-        return lm_logits(x, head, cfg.vocab_size, transpose=tied)
+        head, tied = self._head_weight()
+        return lm_logits(x, head, self.cfg.vocab_size, transpose=tied)
 
     def _embed_in(self, batch) -> torch.Tensor:
         x = embed_lookup(self.tok_embed, batch["tokens"])
@@ -103,17 +113,42 @@ class Model(ParamTree):
         b, s, _ = x.shape
         return x, torch.arange(s, device=x.device).expand(b, s)
 
-    @torch.no_grad()
-    def forward(self, batch) -> torch.Tensor:
+    def _hidden(self, batch) -> torch.Tensor:
+        """The final normed hidden states (B, S, d) of a whole sequence."""
         x, pos = self._prompt(batch)
         if self.cfg.is_encdec:
             enc = whisper.encode(self, batch["audio_embeds"], self.cfg,
                                  self.plan)
             x, _ = whisper.decode_stack(self, x, self.cfg, self.plan,
                                         enc_out=enc)
+            return x
+        x, _ = self._run(x, pos, None, decode=False, batch=batch)
+        return x
+
+    @torch.no_grad()
+    def forward(self, batch) -> torch.Tensor:
+        return self._head(self._hidden(batch))
+
+    def loss(self, batch):
+        """-> (ce + 0.01 * aux, {"ce", "aux"}), f32 scalars: the mean
+        next-token CE over ``batch["targets"]`` (a VLM's vision prefix
+        carries none) and the MoE load-balance loss (0 without MoE).  The
+        CE is chunked (``layers.chunked_ce``) under ``plan.opt_chunked_ce``
+        for a decoder-only model at S >= 2048, as the reference."""
+        cfg, plan = self.cfg, self.plan
+        tgt = batch["targets"]
+        x = self._hidden(batch)
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            x = x[:, batch["vision_embeds"].shape[1]:]
+        if plan.opt_chunked_ce and not cfg.is_encdec and \
+                batch["tokens"].shape[1] >= 2048:
+            head, tied = self._head_weight()
+            ce = chunked_ce(x, head, tgt, cfg.vocab_size, transpose=tied)
         else:
-            x, _ = self._run(x, pos, None, decode=False, batch=batch)
-        return self._head(x)
+            ce = cross_entropy(self._head(x), tgt)
+        aux = self._last_aux if self._last_aux is not None else \
+            torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_decode(self, batch: int, s_max: int):
         if self.cfg.is_encdec:

@@ -4,7 +4,9 @@ The port's counterpart of ``repro.models.param``.  Models declare their
 parameters as trees (dicts and lists) of ``Spec``; ``ParamTree`` turns such
 a tree into an ``nn.Module`` whose parameters carry the tree's names
 (``stack.layers.3.attn.wq``), and ``init_params`` fills them from a
-``torch.Generator``.  The logical axes are kept for the record: the port
+``torch.Generator``.  Parameters are registered frozen, so serving builds
+no autograd graph wherever it reads them; ``trainable()`` turns their
+gradients on for training.  The logical axes are kept for the record: the port
 runs on one device and shards nothing.
 """
 from __future__ import annotations
@@ -78,8 +80,8 @@ def param_count(tree) -> int:
 
 
 class ParamTree(nn.Module):
-    """A dict of specs as a module: a ``Spec`` becomes a parameter (no
-    gradient: the port serves), a dict a ``ParamTree``, a list an
+    """A dict of specs as a module: a ``Spec`` becomes a parameter (frozen
+    until ``trainable()``), a dict a ``ParamTree``, a list an
     ``nn.ModuleList``.  ``tree["wq"]`` reads like the JAX package's
     parameter dicts.  Parameters are allocated, not initialised."""
 
@@ -110,6 +112,11 @@ class ParamTree(nn.Module):
             if isinstance(mod, ParamTree):
                 for name, spec in mod._specs.items():
                     yield spec, getattr(mod, name)
+
+    def trainable(self):
+        """Turn every parameter's gradient on, as the trainer's
+        ``launch.steps.init_train_state`` does."""
+        return self.requires_grad_(True)
 
     def init_params(self, generator: Optional[torch.Generator] = None):
         """Initialise every parameter in place, one leaf at a time (so a

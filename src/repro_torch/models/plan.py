@@ -1,9 +1,11 @@
-"""Serving plan: how a model is laid out, separate from its architecture.
+"""Execution plan: how a model is laid out, separate from its architecture.
 
 The port's counterpart of ``repro.models.plan`` with the fields a
-one-device server reads: head and vocab padding (exact functions: padded
-q heads are masked to zero, padded vocab slots to -1e30), the int8 KV
-cache, the MoE capacity factor and the serving toggles.  The reference's
+one-device server or trainer reads: head and vocab padding (exact
+functions: padded q heads are masked to zero, padded vocab slots to
+-1e30), the int8 KV cache, the MoE capacity factor, the serving toggles
+and the training ones (remat, gradient-accumulation microbatches, chunked
+cross-entropy), which serving ignores.  The reference's
 ``weight_quant`` is read nowhere there and has no field here
 (``layers.quantize_int8`` / ``matmul_int8`` are its functions), and its
 ``opt_int8_attend`` has only its default here: an int8 cache is always
@@ -28,6 +30,10 @@ class Plan:
                                  # up to 8192 assignments (serving)
     opt_gqa_pack: bool = True     # decode: fold GQA groups into the query
                                   # axis instead of materialising repeated KV
+    remat: str = "full"          # full | none: recompute each layer in the
+                                 # backward (training only)
+    microbatches: int = 1        # grad-accumulation steps
+    opt_chunked_ce: bool = True  # chunked cross-entropy (no (B,S,V) f32)
 
     def padded_heads(self, n_heads: int) -> int:
         """Zero-pad q heads to a TP multiple (exact function)."""

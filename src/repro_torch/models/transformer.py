@@ -18,6 +18,7 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention, mamba, moe, rwkv6
@@ -119,38 +120,55 @@ def init_caches(cfg: ModelConfig, plan: Plan, batch: int, s_max: int,
     return caches
 
 
+def _layer(p, d: LayerDef, x: torch.Tensor, cfg: ModelConfig, plan: Plan,
+           rope, c, decode: bool, hmask):
+    """One layer: x (B, S, D) -> (x, new cache, MoE load-balance loss or
+    None)."""
+    if d.mixer == "rwkv":
+        x, nc = rwkv6.rwkv_block(p["rwkv"], x, cfg, plan, state=c)
+        return x, nc, None
+    h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    if d.mixer == "mamba":
+        y, nc = mamba.mamba_forward(p["mamba"], h, cfg, plan, state=c,
+                                    decode=decode)
+    else:
+        mixer = attention.mla_forward if d.mixer == "mla" else \
+            attention.gqa_forward
+        y, nc = mixer(p["attn"], h, cfg, plan, rope=rope, cache=c,
+                      decode=decode, hmask=hmask)
+    x = x + y
+    h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    if d.ffn == "moe":
+        y, a = moe.moe_forward(p["ffn"], h, cfg, plan)
+        return x + y, nc, a["load_balance_loss"]
+    return x + swiglu(p["ffn"], h), nc, None
+
+
 def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
                   rope=None, caches=None, decode: bool = False):
     """x (B, S, D) -> (normed (B, S, D), new caches or None, aux): aux is
-    the MoE layers' load-balance losses summed (f32 scalar)."""
+    the MoE layers' load-balance losses summed (f32 scalar).
+
+    With ``plan.remat == "full"``, no caches and autograd recording (a
+    training forward), each layer runs under ``torch.utils.checkpoint``
+    and is recomputed in the backward, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` block: only the layers' inputs
+    are kept."""
     hmask = attention.head_mask(cfg, plan, device=x.device)
     new_caches = [] if caches is not None else None
+    remat = plan.remat == "full" and caches is None and not decode and \
+        torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(stack["layers"]):
         d = layer_def(cfg, i)
         c = None if caches is None else caches[i]
-        if d.mixer == "rwkv":
-            x, nc = rwkv6.rwkv_block(p["rwkv"], x, cfg, plan, state=c)
-            if new_caches is not None:
-                new_caches.append(nc)
-            continue
-        h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
-        if d.mixer == "mamba":
-            y, nc = mamba.mamba_forward(p["mamba"], h, cfg, plan, state=c,
-                                        decode=decode)
+        if remat:
+            x, nc, a = checkpoint(_layer, p, d, x, cfg, plan, rope, c, decode,
+                                  hmask, use_reentrant=False)
         else:
-            mixer = attention.mla_forward if d.mixer == "mla" else \
-                attention.gqa_forward
-            y, nc = mixer(p["attn"], h, cfg, plan, rope=rope, cache=c,
-                          decode=decode, hmask=hmask)
-        x = x + y
-        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-        if d.ffn == "moe":
-            y, a = moe.moe_forward(p["ffn"], h, cfg, plan)
-            x = x + y
-            aux = aux + a["load_balance_loss"]
-        else:
-            x = x + swiglu(p["ffn"], h)
+            x, nc, a = _layer(p, d, x, cfg, plan, rope, c, decode, hmask)
+        if a is not None:
+            aux = aux + a
         if new_caches is not None:
             new_caches.append(nc)
     return rms_norm(x, stack["ln_f"], cfg.norm_eps), new_caches, aux

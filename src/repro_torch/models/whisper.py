@@ -23,7 +23,8 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import (gelu_mlp, gelu_mlp_spec, layer_norm,
-                                       layer_norm_spec, sinusoid_positions)
+                                       layer_norm_spec, matmul,
+                                       sinusoid_positions)
 from repro_torch.models.param import Spec
 from repro_torch.models.plan import Plan
 
@@ -68,13 +69,16 @@ def _out(p, o: torch.Tensor, hmask) -> torch.Tensor:
         o = o * hmask[None, None, :, None]
     b, s = o.shape[:2]
     hq, hd, d = p["wo"].shape
-    return o.reshape(b, s, hq * hd) @ p["wo"].reshape(hq * hd, d)
+    return matmul(o.reshape(b, s, hq * hd), p["wo"].reshape(hq * hd, d))
 
 
 def encode(params, audio_embeds: torch.Tensor, cfg: ModelConfig,
            plan: Plan) -> torch.Tensor:
     """audio_embeds (B, F, d), the frontend stub's output -> the encoder's
-    normed output (B, F, d)."""
+    normed output (B, F, d).  The encoder runs in the embeddings' dtype
+    promoted against the bf16 weights, as ``jnp`` promotes: bf16 frames
+    (serving) stay bf16, f32 frames (the training batch) run it in f32,
+    and its output then makes f32 cross-attention K/V."""
     x = audio_embeds + sinusoid_positions(
         audio_embeds.shape[1], cfg.d_model,
         device=audio_embeds.device).to(audio_embeds.dtype)
