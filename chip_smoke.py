@@ -3,7 +3,8 @@ simulator (its controllers, streamed replay, chunk codec, checkpoints,
 device workload generator and fault-tolerant sweep orchestrator too), the
 FIGCache-KV serving path, the LM serving paths (dense; MoE with MLA;
 the sliding-window ring cache; a VLM with the int8 KV cache; Whisper;
-Mamba in Jamba and RWKV-6) and training on one device.
+Mamba in Jamba and RWKV-6), training on one device, and the sharded
+stack's train, prefill and decode steps on a 1 x 1 mesh.
 
     python3 chip_smoke.py
 
@@ -286,7 +287,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    idle share against the median step) and one with the attention
    backward and the CE chunks synchronised around, their shares of the
    step;
-20. summary: one ``{"kernels": [...]}`` JSON line (device times from
+20. the sharded LM stack on a 1 x 1 mesh of the one card
+   (``launch.mesh.init_single("cuda")``, NCCL, ``make_test_mesh(1, 1)``):
+   phase 19's whole Qwen1.5-0.5B step (S 4096, batch 8) once without a
+   mesh and once through ``make_train_step(model, hyper, mesh)`` (the
+   parameters, optimizer state and batch as ``DTensor``s laid out by
+   ``launch.sharding``) from copies of one state, the loss and every
+   updated leaf (bf16 parameters, m, v, f32 masters) expected bitwise
+   equal, a difference printed with its first leaf and held within one
+   bf16 ulp of that leaf's largest entry; flash_attention's launches in
+   the step (48); the median of 3 more sharded steps against phase 19's
+   median (the host cost of ``DTensor`` dispatch); ``make_prefill_fn`` /
+   ``make_decode_fn`` on the mesh give the same 8 greedy tokens as
+   ``serve.run`` for 4 prompts of 512 tokens; then ``launch.dryrun``'s
+   prediction for the same cell at (1, 1) (a subprocess on the CPU,
+   started at the phase's start: the fake group, the meta device): FLOPs,
+   bytes and the roofline bound at the H100's published peaks, and the
+   measured step's share of that bound beside the nvidia-smi line;
+21. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
@@ -299,7 +317,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    0 around its prefill, in ``path_launches``, and its times at MLA's,
    Qwen2-VL's and Whisper's encoder's shapes in ``mla``, ``qwen2_vl`` and
    ``whisper``, and at Jamba's in ``jamba``; RWKV6-3B's path launches it
-   no time; the trainer's, ``train``, counted around phase 19's run),
+   no time; the trainer's, ``train``, counted around phase 19's run, and
+   phase 20's sharded step and prefill, ``train_mesh`` and
+   ``serve_mesh``),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -377,6 +397,7 @@ from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 
 FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
 PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
@@ -454,6 +475,11 @@ TRAIN_F32_GRAD_TOL, TRAIN_BF16_GRAD_TOL = 1e-3, 0.1
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS = "train_4k", 8, 6
 H100_BF16_FLOPS = 989e12                         # dense bf16, H100 SXM
+# the sharded stack on a 1 x 1 mesh (phase 20): phase 19's whole
+# Qwen1.5-0.5B train step (S 4096, batch TRAIN_BATCH) once without a mesh
+# and MESH_STEPS + 1 times through the sharded step, from copies of one
+# state; MESH_SERVE_B prompts of MESH_PROMPT tokens, MESH_GEN greedy tokens
+MESH_STEPS, MESH_SERVE_B, MESH_PROMPT, MESH_GEN = 3, 4, 512, 8
 
 # tests/test_obs.py's controllers
 SCHEDS = {
@@ -4478,6 +4504,183 @@ def train_step_profile(dev, cfg, plan, seq, step_s):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the sharded stack on a 1 x 1 mesh
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp of x's largest magnitude."""
+    m = float(x.detach().float().abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def first_difference(a, b):
+    """(name, max abs difference, one bf16 ulp of a's largest entry) of the
+    first leaf of two dicts of tensors that differs, or None."""
+    for n in a:
+        x, y = steps_lib.full(a[n]), steps_lib.full(b[n])
+        if not torch.equal(x, y):
+            return n, float((x.float() - y.float()).abs().max()), bf16_ulp(x)
+    return None
+
+
+def dryrun_prediction(shape):
+    """Start ``launch.dryrun.lower_cell`` for the trainer's cell on a (1, 1)
+    mesh in a subprocess (the fake group, the meta device, the CPU), so it
+    runs beside the card's steps; -> the process and its output path."""
+    out = pathlib.Path(tempfile.mkdtemp()) / "cell.json"
+    code = (
+        "import json, sys, torch; torch.set_num_threads(1)\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "mesh.init_fake(1)\n"
+        "m = mesh.make_test_mesh(1, 1, device_type='cpu')\n"
+        f"shape = configs.ShapeConfig({shape.name!r}, {shape.kind!r}, "
+        f"{shape.seq_len}, {shape.global_batch})\n"
+        f"r = dryrun.lower_cell({TRAIN_ARCH!r}, None, m, shape=shape)\n"
+        f"json.dump(r, open({str(out)!r}, 'w'))\n")
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out
+
+
+def phase_mesh(dev, train_step_ms):
+    """Phase 20: the sharded LM stack (``launch.sharding`` /
+    ``launch.steps``' mesh path) on a 1 x 1 mesh of the one card, NCCL."""
+    t_phase = time.perf_counter()
+    full = configs.get(TRAIN_ARCH)
+    shape = configs.SHAPES[TRAIN_SHAPE]
+    cell = configs.ShapeConfig(shape.name, shape.kind, shape.seq_len,
+                               TRAIN_BATCH)
+    proc, pred_path = dryrun_prediction(cell)
+    mesh_lib.init_single("cuda")
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    check(mesh_lib.mesh_axes(mesh) == {"data": 1, "model": 1} and
+          mesh_lib.dp_axes(mesh) == ("data",), f"mesh {mesh}")
+    hyper = steps_lib.Hyper(peak_lr=1e-3, warmup=10, total_steps=10)
+    batch = train_batch(full, shape.seq_len, TRAIN_BATCH, dev)
+
+    # the mesh-less step, from the state drawn from seed 0
+    plan = steps_lib.make_plan(full, cell)
+    model = build_model(full, plan, device=dev)
+    state = steps_lib.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), hyper)
+    state, met = steps_lib.make_train_step(model, hyper)(state, batch)
+    want = {"loss": met["loss"], "params": dict(state["params"]),
+            "m": state["opt"].m, "v": state["opt"].v,
+            "master": state["opt"].master}
+    del model, state
+    torch.cuda.empty_cache()
+
+    # the sharded step from the same state
+    mplan = steps_lib.make_plan(full, cell, mesh)
+    check(mplan.tp == 1 and mplan.dp == 1 and mplan.hint_dp is None and
+          mplan.act_pspec is None and not mplan.fsdp,
+          f"make_plan on the 1 x 1 mesh gave {mplan}")
+    model = build_model(full, mplan, device=dev)
+    state = steps_lib.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), hyper)
+    step = steps_lib.make_train_step(model, hyper, mesh)
+    state = steps_lib.shard_train_state(
+        state, steps_lib.train_state_shardings(model, mesh, hyper))
+    flash_kernel.COUNTER.launches = 0
+    state, met2 = step(state, batch)
+    torch.cuda.synchronize()
+    launches = flash_kernel.COUNTER.launches
+    got = {"loss": met2["loss"], "params": state["params"],
+           "m": state["opt"].m, "v": state["opt"].v,
+           "master": state["opt"].master}
+    loss_equal = torch.equal(want["loss"], got["loss"])
+    diffs = {k: first_difference(want[k], got[k])
+             for k in ("params", "m", "v", "master")}
+    log(f"[mesh] {TRAIN_ARCH} whole, S {shape.seq_len}, batch {TRAIN_BATCH}, "
+        f"1 x 1 mesh: sharded step loss {float(got['loss']):.6f}, mesh-less "
+        f"{float(want['loss']):.6f} ({'bitwise equal' if loss_equal else 'differ'}); "
+        + "; ".join(f"{k}: " + ("every leaf bitwise equal" if d is None else
+                               f"first differing leaf {d[0]}, max abs "
+                               f"{d[1]:.4g} (one bf16 ulp of its largest "
+                               f"entry {d[2]:.4g})")
+                    for k, d in diffs.items()))
+    check(abs(float(got["loss"]) - float(want["loss"])) <=
+          bf16_ulp(want["loss"]), f"mesh loss {got['loss']} vs {want['loss']}")
+    for k, d in diffs.items():
+        check(d is None or d[1] <= d[2], f"mesh step {k}: {d}")
+    check(launches == 2 * full.n_layers,
+          f"mesh step: flash_attention launched {launches} times, expected "
+          f"{2 * full.n_layers}")
+    del want
+    ms = []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(ms)
+    log(f"[mesh] sharded step ms {[round(x, 1) for x in ms]}, median "
+        f"{step_ms:.1f} against phase 19's mesh-less median "
+        f"{train_step_ms:.1f} ({step_ms / train_step_ms:.4f}x: the host "
+        f"cost of DTensor dispatch); flash_attention launches a step "
+        f"{launches}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+    # serving: make_prefill_fn / make_decode_fn against serve's tokens
+    run = serve.run(TRAIN_ARCH, reduced=False, prompt_len=MESH_PROMPT,
+                    gen=MESH_GEN, batch=MESH_SERVE_B, device=dev)
+    s_max = MESH_PROMPT + MESH_GEN + 8
+    pre_shape = configs.ShapeConfig("serve", "prefill", s_max, MESH_SERVE_B)
+    dec_shape = configs.ShapeConfig("serve", "decode", s_max, MESH_SERVE_B)
+    prefill, _ = steps_lib.make_prefill_fn(run.model, mesh, pre_shape)
+    decode, *_ = steps_lib.make_decode_fn(run.model, mesh, dec_shape)
+    flash_kernel.COUNTER.launches = 0
+    caches, logits = prefill(run.batch,
+                             run.model.init_decode(MESH_SERVE_B, s_max))
+    serve_launches = flash_kernel.COUNTER.launches
+    toks = []
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for i in range(MESH_GEN):
+        toks.append(tok)
+        caches, logits = decode(caches, tok, MESH_PROMPT + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    toks = torch.cat(toks, 1).cpu().numpy()
+    log(f"[mesh] serving through make_prefill_fn / make_decode_fn: "
+        f"{MESH_GEN} greedy tokens of {MESH_SERVE_B} prompts of "
+        f"{MESH_PROMPT} equal serve's: {np.array_equal(toks, run.tokens)}; "
+        f"flash_attention launches in the prefill {serve_launches}")
+    check(np.array_equal(toks, run.tokens),
+          f"mesh serving tokens {toks} vs serve {run.tokens}")
+    check(serve_launches == full.n_layers,
+          f"mesh prefill launched flash_attention {serve_launches} times")
+    del run, caches, prefill, decode
+    torch.cuda.empty_cache()
+
+    # the dry run's prediction for the trainer's cell at (1, 1)
+    out, _ = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"dry run: {out[-3000:]}")
+    pred = json.loads(pred_path.read_text())
+    roof = pred["roofline"]
+    share = roof["roofline_bound_s"] * 1e3 / step_ms
+    log(f"[mesh] dry run of {TRAIN_ARCH} {TRAIN_SHAPE} batch {TRAIN_BATCH} "
+        f"at (1, 1), predicted from the H100's published peaks (989 TFLOP/s "
+        f"bf16, 3.35 TB/s, 450 GB/s): {roof['hlo_flops_per_dev']:.4e} FLOPs, "
+        f"{roof['hlo_bytes_per_dev']:.4e} bytes (each op's inputs and "
+        f"outputs), {roof['collective_bytes_per_dev']:.0f} collective bytes, "
+        f"arguments {pred['memory']['argument_size_in_bytes'] / 2 ** 30:.3f} "
+        f"GiB; bound {roof['roofline_bound_s'] * 1e3:.1f} ms by "
+        f"{roof['bottleneck']} (compute {roof['compute_s'] * 1e3:.1f} ms, "
+        f"memory {roof['memory_s'] * 1e3:.1f} ms); the measured sharded "
+        f"step {step_ms:.1f} ms is {1 / share:.3f}x the bound (bound share "
+        f"{share:.4f}) on {nvidia_smi_line()}; traced in {pred['trace_s']} s")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    log(f"[mesh] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "serve_launches": serve_launches,
+            "step_ms": step_ms, "loss_equal": loss_equal,
+            "diffs": diffs, "prediction": roof, "bound_share": share}
+
+
+# ---------------------------------------------------------------------------
 # phase 15: sanitizer and flight recorder
 
 def stacked_fig8(per_channel):
@@ -4662,6 +4865,7 @@ def main():
     vlm = phase_vlm(dev)
     ssm = phase_ssm(dev)
     trained = phase_train(dev)
+    meshed = phase_mesh(dev, trained["run"]["step_ms"])
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -4749,7 +4953,9 @@ def main():
                           f"{JAMBA_ARCH}-{JAMBA_LAYERS}l":
                               ssm["jamba"]["launches"],
                           RWKV_ARCH: ssm["rwkv"]["launches"],
-                          "train": trained["run"]["launches"]},
+                          "train": trained["run"]["launches"],
+                          "train_mesh": meshed["launches"],
+                          "serve_mesh": meshed["serve_launches"]},
         "mla": {k: mla["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")},

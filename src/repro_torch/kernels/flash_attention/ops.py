@@ -9,7 +9,10 @@ goes through ``MHA``: the kernel writes its output through raw pointers,
 which autograd cannot see, so without it q, k and v would get no
 gradient and nothing would fail.  Where no gradient is wanted (serving,
 under ``no_grad``) ``MHA.apply`` runs its forward alone and records no
-graph.
+graph.  On a device mesh q, k and v are ``DTensor``s, which have no
+storage of their own: ``mha`` runs on their local shards (batch and heads
+split, nothing else) and wraps the output back.  A meta tensor (the dry
+run's) takes the plain version: it has no data to launch on.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.spmd import is_dtensor, local_call
 
 
 def _launch(q, k, v, *, causal, window, scale):
@@ -82,7 +86,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     With Hkv = H this is the JAX package's ``mha``; with Hkv < H, query
     head h reads KV head ``h // (H // Hkv)`` and K/V are never repeated.
     On CUDA the launch goes through ``MHA``."""
-    if q.device.type == "cpu":
+    if is_dtensor(q):
+        return local_call(lambda q, k, v: mha(q, k, v, causal=causal,
+                                              window=window, scale=scale),
+                          (q, k, v), (0, 2))
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
     return MHA.apply(q, k, v, causal, window, scale, _launch, 256)

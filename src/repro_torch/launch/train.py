@@ -9,6 +9,9 @@ As in the JAX package, ``--reduced`` is on by default and the command line
 cannot turn it off; ``run(arch, shape, reduced=False)`` trains the full
 width on the one device (the reference asks for a cluster there).  Every
 attention layer's forward runs the flash-attention kernel on the card.
+The reference's ``run`` lays its state out on a 1 x 1 test mesh, the
+identity layout; the mesh-less step here is its exact equivalent
+(``launch.steps.make_train_step(model, hyper, mesh)`` is the sharded one).
 """
 from __future__ import annotations
 

@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.layers import apply_rope, matmul
 from repro_torch.models.param import Spec
 from repro_torch.models.plan import Plan
+from repro_torch.spmd import is_dtensor, local_call, redistribute_to
 
 NEG = -1e30
 
@@ -189,6 +190,17 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     if pos < 0 or pos + s_new > s_max:
         raise ValueError(f"cache_update: positions {pos}..{pos + s_new - 1} "
                          f"do not fit the {s_max}-token KV cache")
+    if is_dtensor(cache.k):
+        # on a mesh: the new rows in the cache's layout, written into the
+        # local shards (the cache's tensors stay the caller's)
+        k_new = redistribute_to(k_new, cache.k.placements)
+        v_new = redistribute_to(v_new, cache.v.placements)
+        local = cache._replace(**{
+            f: getattr(cache, f).to_local()
+            for f in ("k", "v", "k_scale", "v_scale")
+            if getattr(cache, f) is not None})
+        cache_update(local, k_new.to_local(), v_new.to_local(), pos)
+        return cache._replace(length=pos + s_new)
     if cache.k_scale is not None:
         (k_new, ks), (v_new, vs) = _quant_kv(k_new), _quant_kv(v_new)
         cache.k_scale[:, pos:pos + s_new] = ks
@@ -196,6 +208,19 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     cache.k[:, pos:pos + s_new] = k_new
     cache.v[:, pos:pos + s_new] = v_new
     return cache._replace(length=pos + s_new)
+
+
+def _local_attend(q, k, v, k_scale, v_scale, n_rep: int, **kw):
+    """``attend`` without a causal mask, on K/V (and int8 scales) of the
+    cache's heads repeated ``n_rep`` times.  On a mesh it runs on the
+    local shards (batch and heads split, nothing else: each (batch, head)
+    is attended on its own), the result wrapped back."""
+    def fn(q, k, v, ks, vs):
+        scales = {} if ks is None else dict(k_scale=repeat_kv(ks, n_rep),
+                                            v_scale=repeat_kv(vs, n_rep))
+        return attend(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                      causal=False, **kw, **scales)
+    return local_call(fn, (q, k, v, k_scale, v_scale), (0, 2))
 
 
 def prefill_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -227,10 +252,13 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     q = proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
+    q = plan.hint(q, "dp", None, "tp", None)   # Megatron: heads stay sharded
     if cross_kv is None:
         k, v = proj(x, p["wk"]), proj(x, p["wv"])
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
+        k = plan.hint(k, "dp", None, "tp", None)
+        v = plan.hint(v, "dp", None, "tp", None)
         if rope is not None:
             q, k = apply_rope(q, rope), apply_rope(k, rope)
     else:
@@ -266,10 +294,9 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
             # int8: the codes stay int8, dequantized per chunk in attend
             scales = dict(k_scale=repeat_kv(cache.k_scale, rep_eff),
                           v_scale=repeat_kv(cache.v_scale, rep_eff))
-        out = attend(qx, repeat_kv(cache.k, rep_eff),
-                     repeat_kv(cache.v, rep_eff),
-                     causal=False, window=window, q_offset=pos,
-                     kv_len=kv_len, **scales)
+        out = _local_attend(qx, cache.k, cache.v, cache.k_scale,
+                            cache.v_scale, rep_eff, window=window,
+                            q_offset=pos, kv_len=kv_len)
         if pack:
             out = out.transpose(1, 2).reshape(b, 1, hq, hd)
     else:
@@ -286,9 +313,9 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
         if cross_kv is None:
             out = prefill_mha(q, k, v, causal=True, window=w)
         else:
-            n_rep = q.shape[2] // k.shape[2]
-            out = attend(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                         causal=False, window=w)
+            out = _local_attend(q, k, v, None, None, q.shape[2] // k.shape[2],
+                                window=w)
+    out = plan.hint(out, "dp", None, "tp", None)
     if hmask is not None:
         out = out * hmask[None, None, :, None]
     hq, hd, d = p["wo"].shape
@@ -309,7 +336,7 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     latent cache, re-expanded every step."""
     m = cfg.mla
     b, s, _ = x.shape
-    q = proj(x, p["wq"])
+    q = plan.hint(proj(x, p["wq"]), "dp", None, "tp", None)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     c_kv = x @ p["w_dkv"]                           # (B, S, rank)
     k_rope = (x @ p["w_kr"])[:, :, None, :]         # (B, S, 1, rope)
@@ -326,18 +353,19 @@ def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
             cache = cache_update(cache, c_kv[:, :, None, :], k_rope, 0)
         c_all, kr_all, pos = c_kv, k_rope, 0
 
-    k_nope = proj(c_all, p["w_uk"])
-    v = proj(c_all, p["w_uv"])
+    k_nope = plan.hint(proj(c_all, p["w_uk"]), "dp", None, "tp", None)
+    v = plan.hint(proj(c_all, p["w_uv"]), "dp", None, "tp", None)
     h = q.shape[2]
     k = torch.cat([k_nope, kr_all.expand(-1, -1, h, -1)], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     # the v head dim may differ from the qk dim: pad v to it
     vp = _pad_last(v, qfull.shape[-1])
     if decode:
-        out = attend(qfull, k, vp, causal=False, q_offset=pos, kv_len=kv_len)
+        out = _local_attend(qfull, k, vp, None, None, 1, q_offset=pos,
+                            kv_len=kv_len)
     else:
         out = prefill_mha(qfull, k, vp, causal=True)
-    out = out[..., :m.v_head_dim]
+    out = plan.hint(out[..., :m.v_head_dim], "dp", None, "tp", None)
     if hmask is not None:
         out = out * hmask[None, None, :, None]
     hq, hd, d = p["wo"].shape

@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.workload.xla_math import tanh_f32
 from repro_torch.models.param import Spec
 from repro_torch.models.sincosf import sincos_f32
+from repro_torch.spmd import is_dtensor
 
 NEG = -1e30
 
@@ -126,9 +127,31 @@ def swiglu_spec(d: int, f: int):
             "wo": Spec((f, d), ("ffn", "embed"))}
 
 
+def _tp_halves(wi):
+    """The gate and up halves of a ``DTensor`` [gate | up] weight (d, 2f)
+    whose columns are split over the mesh, each half split the same way:
+    the weight gathered, halved and laid out again.  Split as one, rank r
+    would hold a slice of [gate | up] (all gate, or all up), and the
+    product's halves would be gathered at the size of the activations
+    (tokens x 2f); this gathers the weight (d x 2f) instead, and keeps
+    both products split."""
+    from torch.distributed.tensor import Replicate
+    mesh = wi.device_mesh
+    whole = wi.redistribute(mesh, tuple(Replicate() for _ in wi.placements))
+    return [h.redistribute(mesh, wi.placements) for h in
+            whole.chunk(2, dim=-1)]
+
+
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     """silu in f32, cast to x's dtype, gate, down projection."""
-    g, u = (x @ p["wi"]).chunk(2, dim=-1)
+    wi = p["wi"]
+    tokens = x.numel() // x.shape[-1]
+    if is_dtensor(wi) and tokens > wi.shape[0] and any(
+            getattr(pl, "dim", None) == wi.dim() - 1 for pl in wi.placements):
+        # more tokens than weight rows: gather the weight, not the products
+        g, u = (x @ w for w in _tp_halves(wi))
+    else:
+        g, u = (x @ wi).chunk(2, dim=-1)
     return (F.silu(g.float()).to(x.dtype) * u) @ p["wo"]
 
 
@@ -196,11 +219,14 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor,
-              vocab_logical: int, transpose: bool) -> torch.Tensor:
+              vocab_logical: int, transpose: bool, plan=None) -> torch.Tensor:
     """Project to the (padded) vocab in x's dtype, then f32; padded slots
-    are masked to -1e30."""
+    are masked to -1e30.  With a ``plan`` the logits keep the vocab split
+    over the model axis (``Plan.hint``)."""
     w = table_or_head.t() if transpose else table_or_head   # (d, Vp)
     logits = (x @ w).float()
+    if plan is not None:
+        logits = plan.hint(logits, "dp", None, "tp")  # keep vocab sharded
     vp = logits.shape[-1]
     if vp > vocab_logical:
         pad = torch.arange(vp, device=logits.device) >= vocab_logical
@@ -214,8 +240,19 @@ def _nll_sum(logits: torch.Tensor, targets: torch.Tensor,
     logits f32 (..., V), targets (...)."""
     valid = targets != ignore_id
     tgt = torch.clamp(targets, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    if is_dtensor(logits) and any(getattr(p, "dim", None) in (
+            -1, logits.dim() - 1) for p in logits.placements):
+        # on a mesh that splits the vocab: logsumexp as max, then the sum
+        # of exponentials (each a reduction over the shards, no gather of
+        # the logits), and the target's logit as a sum of one entry and
+        # zeros, the same value
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
+        ids = torch.arange(logits.shape[-1], device=tgt.device)
+        gold = torch.where(ids == tgt[..., None], logits, 0.0).sum(dim=-1)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
 
 
@@ -228,13 +265,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _ce_chunk(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-              vocab_logical: int, transpose: bool):
-    return _nll_sum(lm_logits(x, head, vocab_logical, transpose), targets)
+              vocab_logical: int, transpose: bool, plan=None):
+    return _nll_sum(lm_logits(x, head, vocab_logical, transpose, plan),
+                    targets)
 
 
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
                vocab_logical: int, *, transpose: bool,
-               chunk: int = 1024) -> torch.Tensor:
+               chunk: int = 1024, plan=None) -> torch.Tensor:
     """Cross-entropy of the LM head over x (B, S, d) without holding the
     (B, S, V) logits: chunks of ``chunk`` positions along S, each chunk's
     logits recomputed in the backward (``torch.utils.checkpoint``, the
@@ -245,14 +283,14 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     whole logits."""
     b, s, _ = x.shape
     if s % chunk or s <= chunk:
-        return cross_entropy(lm_logits(x, head, vocab_logical, transpose),
-                             targets)
+        return cross_entropy(lm_logits(x, head, vocab_logical, transpose,
+                                       plan), targets)
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for c0 in range(0, s, chunk):
         n, c = checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head,
                           targets[:, c0:c0 + chunk], vocab_logical, transpose,
-                          use_reentrant=False)
+                          plan, use_reentrant=False)
         nll, cnt = nll + n, cnt + c
     return nll / torch.clamp(cnt, min=1)
 

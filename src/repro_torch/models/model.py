@@ -85,9 +85,10 @@ class Model(ParamTree):
         tied = self.cfg.tie_embeddings or self.cfg.is_encdec
         return (self.tok_embed if tied else self.lm_head), tied
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, plan=None) -> torch.Tensor:
         head, tied = self._head_weight()
-        return lm_logits(x, head, self.cfg.vocab_size, transpose=tied)
+        return lm_logits(x, head, self.cfg.vocab_size, transpose=tied,
+                         plan=plan)
 
     def _embed_in(self, batch) -> torch.Tensor:
         x = embed_lookup(self.tok_embed, batch["tokens"])
@@ -127,7 +128,7 @@ class Model(ParamTree):
 
     @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
-        return self._head(self._hidden(batch))
+        return self._head(self._hidden(batch), self.plan)
 
     def loss(self, batch):
         """-> (ce + 0.01 * aux, {"ce", "aux"}), f32 scalars: the mean
@@ -143,9 +144,10 @@ class Model(ParamTree):
         if plan.opt_chunked_ce and not cfg.is_encdec and \
                 batch["tokens"].shape[1] >= 2048:
             head, tied = self._head_weight()
-            ce = chunked_ce(x, head, tgt, cfg.vocab_size, transpose=tied)
+            ce = chunked_ce(x, head, tgt, cfg.vocab_size, transpose=tied,
+                            plan=plan)
         else:
-            ce = cross_entropy(self._head(x), tgt)
+            ce = cross_entropy(self._head(x, plan), tgt)
         aux = self._last_aux if self._last_aux is not None else \
             torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}

@@ -10,6 +10,12 @@ ascending expert order, as XLA's scatter-add adds them.  The expert
 products are batched matmuls over the (E, C, D) buffer, as the
 reference's einsums (no Pallas kernel computes them).
 
+Tokens are dispatched in ``dp * pods`` groups (one per data shard, when
+the batch divides), each with its own capacity, as the reference vmaps
+its dispatch over the DP groups; the load-balance auxiliaries stay
+global.  On a device mesh each rank dispatches its own groups on its
+local tokens (``_local_groups``).
+
 ``moe_dense_ref`` is a plain reference of the same function for the tests
 and the card check: expert by expert over its kept tokens, summed in f32.
 """
@@ -24,6 +30,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import swiglu
 from repro_torch.models.param import Spec
 from repro_torch.models.plan import Plan
+from repro_torch.spmd import is_dtensor, to_local
 
 # drop-free capacity (moe_capacity <= 0) holds up to this many assignments;
 # past it, twice the mean load of an expert
@@ -66,11 +73,18 @@ def route_topk(logits: torch.Tensor, k: int):
     return e / e.sum(dim=-1, keepdim=True), idx
 
 
+def n_groups(plan: Plan, batch: int) -> int:
+    """The reference's token-group count: ``dp * pods`` when it divides the
+    batch, else 1."""
+    g = max(1, plan.dp * plan.pods)
+    return g if batch % g == 0 else 1
+
+
 def capacity(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> int:
-    """Each expert's capacity C over the batch's ``batch * seq`` tokens (one
-    token group: the port runs on one device)."""
+    """Each expert's capacity C within one token group of the batch's
+    ``batch * seq`` tokens."""
     m = cfg.moe
-    tk = batch * seq * m.top_k
+    tk = batch * seq // n_groups(plan, batch) * m.top_k
     if plan.moe_capacity <= 0:
         return tk if tk <= DROP_FREE_MAX else max(1, int(tk / m.n_experts *
                                                          2.0))
@@ -128,22 +142,104 @@ def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
                             slot_tk.view(t, top_k))
 
 
+def _groups(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
+            C: int, g: int, routing: bool):
+    """Dispatch xt (T, D), routed by ``route_topk``'s (w, idx), as ``g``
+    consecutive token groups -> (y (T, D), each group's dropped share
+    (g,), ``Routing`` or None)."""
+    t = xt.shape[0]
+    if g == 1:
+        y, drop, route = _dispatch(xt, w, idx, p, m, C, routing)
+        return y, drop[None], route
+    tg = t // g
+    parts = [_dispatch(xt[i * tg:(i + 1) * tg], w[i * tg:(i + 1) * tg],
+                       idx[i * tg:(i + 1) * tg], p, m, C, routing)
+             for i in range(g)]
+    y = torch.cat([r[0] for r in parts])
+    drops = torch.stack([r[1] for r in parts])
+    if not routing:
+        return y, drops, None
+    rs = [r[2] for r in parts]
+    return y, drops, Routing(torch.cat([r.idx for r in rs]),
+                             torch.cat([r.keep for r in rs]),
+                             torch.cat([r.slot for r in rs]))
+
+
+def _local_groups(p, x, cfg: ModelConfig, plan: Plan, g: int, C: int):
+    """``moe_forward``'s dispatch on a mesh: x (B, S, D) a ``DTensor``
+    whose batch is split over the data axes.  Each rank dispatches the
+    groups of its local tokens (its data shard is whole groups, or the
+    batch is one group and every rank holds it all) with the experts'
+    weights whole on every rank, and the auxiliaries' sums are reduced
+    over the data axes.  -> (y, logits' softmax sum (E,), top-k counts
+    (E,), dropped shares' sum), the sums replicated ``DTensor``s (so
+    autograd carries ``DTensor`` gradients back to them)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    m = cfg.moe
+    b, s, d = x.shape
+    mesh = x.device_mesh
+    # the mesh dims that keep the batch split: data axes, with groups
+    batch_dims = [g > 1 and name != "model" and getattr(pl, "dim", None) == 0
+                  for pl, name in zip(x.placements, mesh.mesh_dim_names)]
+    x = x.redistribute(mesh, tuple(pl if keep else Replicate() for pl, keep
+                                   in zip(x.placements, batch_dims)))
+    # each rank's gradient of the whole weights covers its own tokens: a
+    # partial sum over the mesh dims that split them
+    split = tuple(Partial() if keep else Replicate() for keep in batch_dims)
+    names = ("router", "wi", "wo") + (
+        ("shared_wi", "shared_wo") if m.n_shared else ())
+    whole = {k: p[k].full_tensor(grad_placements=split) if is_dtensor(p[k])
+             else p[k] for k in names}
+    xl = to_local(x)
+    bl = xl.shape[0]
+    xt = xl.reshape(bl * s, d)
+    logits = xt.float() @ whole["router"].float()
+    w, idx = route_topk(logits, m.top_k)
+    y, drops, _ = _groups(xt, w, idx, whole, m, C, max(1, bl * g // b),
+                          False)
+    if m.n_shared:
+        y = y + swiglu({"wi": whole["shared_wi"],
+                        "wo": whole["shared_wo"]}, xt)
+    flat = idx.reshape(-1)
+    counts = logits.new_zeros(m.n_experts).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32))
+    sums = (torch.softmax(logits, dim=-1).sum(dim=0), counts, drops.sum())
+    whole_sum = tuple(Replicate() for _ in split)
+    sums = [DTensor.from_local(t, mesh, split, run_check=False)
+            .redistribute(mesh, whole_sum) for t in sums]
+    y = DTensor.from_local(y.reshape(bl, s, d).contiguous(), mesh,
+                           x.placements,
+                           run_check=False, shape=x.shape, stride=x.stride())
+    return (y, *sums)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
                 routing: bool = False):
     """x (B, S, D) -> (y (B, S, D), {"load_balance_loss", "dropped_frac"}),
     and the ``Routing`` as a third value when ``routing``.
 
-    All B * S tokens are dispatched as one group (the reference's group
-    count ``dp * pods`` is 1 on one device), and nothing here reads a
-    value back to the host."""
+    The B * S tokens are dispatched in ``n_groups(plan, B)`` consecutive
+    groups, each with its own capacity (``dp * pods`` groups, one per
+    data shard; 1 on one device); ``dropped_frac`` is the groups' mean
+    dropped share and the load-balance loss is taken over all tokens.
+    Nothing here reads a value back to the host."""
     m = cfg.moe
     b, s, d = x.shape
     n_e = m.n_experts
+    g = n_groups(plan, b)
     C = capacity(cfg, plan, b, s)
+    if is_dtensor(x):
+        x = plan.hint(x, "dp", None, None)
+        y, me_sum, counts, drop_sum, = _local_groups(p, x, cfg, plan, g, C)
+        t = b * s
+        aux = {"load_balance_loss": n_e * ((me_sum / t) *
+                                           (counts / (t * m.top_k))).sum(),
+               "dropped_frac": drop_sum / g}
+        return y, aux
     xt = x.reshape(b * s, d)
     logits = xt.float() @ p["router"].float()               # (T, E)
     w, idx = route_topk(logits, m.top_k)                    # (T, k)
-    y, drop, route = _dispatch(xt, w, idx, p, m, C, routing)
+    y, drops, route = _groups(xt, w, idx, p, m, C, g, routing)
     if m.n_shared:
         y = y + swiglu({"wi": p["shared_wi"], "wo": p["shared_wo"]}, xt)
 
@@ -154,7 +250,8 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     flat = idx.reshape(-1)
     ce = logits.new_zeros(n_e).index_add_(
         0, flat, torch.ones_like(flat, dtype=torch.float32)) / flat.numel()
-    aux = {"load_balance_loss": n_e * (me * ce).sum(), "dropped_frac": drop}
+    aux = {"load_balance_loss": n_e * (me * ce).sum(),
+           "dropped_frac": drops.mean() if g > 1 else drops[0]}
     if routing:
         return y.reshape(b, s, d), aux, route
     return y.reshape(b, s, d), aux
@@ -169,30 +266,35 @@ def _ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
 def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan
                   ) -> Tuple[torch.Tensor, Routing]:
     """Plain reference of ``moe_forward``'s output for the tests and the
-    card check: the same routing (the first C tokens of each expert, in
-    token order, are kept), then expert by expert its kept tokens through
-    its SwiGLU, scaled by their bf16 weight and summed per token in f32,
-    rounded once; the shared experts added in bf16.  Returns y (B, S, D)
-    and the ``Routing`` (its ``slot`` e * C + the kept rank, as the
-    dispatch's)."""
+    card check: the same routing (within each token group, the first C
+    tokens of each expert, in token order, are kept), then expert by
+    expert its kept tokens through its SwiGLU, scaled by their bf16
+    weight and summed per token in f32, rounded once; the shared experts
+    added in bf16.  Returns y (B, S, D) and the ``Routing`` (its ``slot``
+    e * C + the kept rank within the group, as the dispatch's)."""
     m = cfg.moe
     b, s, d = x.shape
     C = capacity(cfg, plan, b, s)
+    g = n_groups(plan, b)
     xt = x.reshape(b * s, d)
     w, idx = route_topk(xt.float() @ p["router"].float(), m.top_k)
     keep = torch.zeros_like(idx, dtype=torch.bool)
     slot = idx * C                                          # dropped: e * C
     y = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
-    for e in range(m.n_experts):
-        hit = idx == e                                      # (T, k)
-        rows = hit.any(dim=1).nonzero()[:C, 0]              # token order
-        if rows.numel() == 0:
-            continue
-        j = hit[rows].int().argmax(dim=1)
-        keep[rows, j] = True
-        slot[rows, j] = e * C + torch.arange(rows.numel(), device=x.device)
-        out = _ffn(xt[rows], p["wi"][e], p["wo"][e])
-        y[rows] += out.float() * w[rows, j].to(x.dtype).float()[:, None]
+    tg = b * s // g
+    for g0 in range(0, b * s, tg):
+        for e in range(m.n_experts):
+            hit = idx[g0:g0 + tg] == e                      # (Tg, k)
+            rows = hit.any(dim=1).nonzero()[:C, 0]          # token order
+            if rows.numel() == 0:
+                continue
+            j = hit[rows].int().argmax(dim=1)
+            rows = rows + g0
+            keep[rows, j] = True
+            slot[rows, j] = e * C + torch.arange(rows.numel(),
+                                                 device=x.device)
+            out = _ffn(xt[rows], p["wi"][e], p["wo"][e])
+            y[rows] += out.float() * w[rows, j].to(x.dtype).float()[:, None]
     y = y.to(x.dtype)
     if m.n_shared:
         y = y + _ffn(xt, p["shared_wi"], p["shared_wo"])

@@ -6,8 +6,9 @@ a tree into an ``nn.Module`` whose parameters carry the tree's names
 (``stack.layers.3.attn.wq``), and ``init_params`` fills them from a
 ``torch.Generator``.  Parameters are registered frozen, so serving builds
 no autograd graph wherever it reads them; ``trainable()`` turns their
-gradients on for training.  The logical axes are kept for the record: the port
-runs on one device and shards nothing.
+gradients on for training.  ``logical_axes()`` and ``abstract_params()``
+give the parameters' logical axes and meta-device stand-ins by dotted
+name, which ``launch.sharding`` maps to a mesh's layouts.
 """
 from __future__ import annotations
 
@@ -112,6 +113,21 @@ class ParamTree(nn.Module):
             if isinstance(mod, ParamTree):
                 for name, spec in mod._specs.items():
                     yield spec, getattr(mod, name)
+
+    def named_specs(self) -> Iterator[Tuple[str, Spec]]:
+        """Every (dotted name, spec), in ``named_parameters()``' order."""
+        for prefix, mod in self.named_modules():
+            if isinstance(mod, ParamTree):
+                for name, spec in mod._specs.items():
+                    yield (f"{prefix}.{name}" if prefix else name), spec
+
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        return {n: s.axes for n, s in self.named_specs()}
+
+    def abstract_params(self) -> Dict[str, torch.Tensor]:
+        """Meta-device tensors of the parameters' shapes and dtypes."""
+        return {n: torch.empty(s.shape, dtype=s.dtype, device="meta")
+                for n, s in self.named_specs()}
 
     def trainable(self):
         """Turn every parameter's gradient on, as the trainer's

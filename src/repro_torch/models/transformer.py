@@ -25,6 +25,7 @@ from repro_torch.models import attention, mamba, moe, rwkv6
 from repro_torch.models.layers import (rms_norm, rms_norm_spec, swiglu,
                                        swiglu_spec)
 from repro_torch.models.plan import Plan
+from repro_torch.spmd import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +128,13 @@ def _layer(p, d: LayerDef, x: torch.Tensor, cfg: ModelConfig, plan: Plan,
     if d.mixer == "rwkv":
         x, nc = rwkv6.rwkv_block(p["rwkv"], x, cfg, plan, state=c)
         return x, nc, None
+    # Megatron-SP: a sequence-sharded stream is gathered once before the
+    # mixer and once before the FFN (the all-gathers the reference's
+    # comment has GSPMD insert), not once for each projection
+    gather = plan.act_pspec is not None and not decode
     h = rms_norm(x, p["ln_mix"], cfg.norm_eps)
+    if gather:
+        h = plan.hint(h, "dp", None, None)
     if d.mixer == "mamba":
         y, nc = mamba.mamba_forward(p["mamba"], h, cfg, plan, state=c,
                                     decode=decode)
@@ -138,6 +145,8 @@ def _layer(p, d: LayerDef, x: torch.Tensor, cfg: ModelConfig, plan: Plan,
                       decode=decode, hmask=hmask)
     x = x + y
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    if gather:
+        h = plan.hint(h, "dp", None, None)
     if d.ffn == "moe":
         y, a = moe.moe_forward(p["ffn"], h, cfg, plan)
         return x + y, nc, a["load_balance_loss"]
@@ -147,7 +156,9 @@ def _layer(p, d: LayerDef, x: torch.Tensor, cfg: ModelConfig, plan: Plan,
 def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
                   rope=None, caches=None, decode: bool = False):
     """x (B, S, D) -> (normed (B, S, D), new caches or None, aux): aux is
-    the MoE layers' load-balance losses summed (f32 scalar).
+    the MoE layers' load-balance losses summed (f32 scalar).  Outside
+    decode, ``plan.act_pspec`` constrains the residual stream at every
+    block boundary of the reference's scan groups (on a mesh only).
 
     With ``plan.remat == "full"``, no caches and autograd recording (a
     training forward), each layer runs under ``torch.utils.checkpoint``
@@ -158,10 +169,16 @@ def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     new_caches = [] if caches is not None else None
     remat = plan.remat == "full" and caches is None and not decode and \
         torch.is_grad_enabled()
+    sp = plan.act_pspec if not decode else None
+    edges = _block_edges(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(stack["layers"]):
         d = layer_def(cfg, i)
         c = None if caches is None else caches[i]
+        if i in edges:
+            # Megatron-SP: the residual stream lives sequence-sharded at
+            # every block boundary (a plain tensor is left as it is)
+            x = constrain(x, sp)
         if remat:
             x, nc, a = checkpoint(_layer, p, d, x, cfg, plan, rope, c, decode,
                                   hmask, use_reentrant=False)
@@ -171,4 +188,16 @@ def stack_forward(stack, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
             aux = aux + a
         if new_caches is not None:
             new_caches.append(nc)
+    x = constrain(x, sp)
     return rms_norm(x, stack["ln_f"], cfg.norm_eps), new_caches, aux
+
+
+def _block_edges(cfg: ModelConfig) -> set:
+    """The layers that start a block of the reference's scan groups (every
+    layer, but one in eight for Jamba's period blocks)."""
+    edges, i = set(), 0
+    for count, block in group_layout(cfg):
+        for _ in range(count):
+            edges.add(i)
+            i += len(block)
+    return edges

@@ -4,8 +4,9 @@
 A state's leaves are dicts keyed by the parameters' dotted names
 (``stack.layers.3.attn.wq``), so ``checkpoint`` saves them as they are;
 the bf16 forward params are re-derived from the f32 master copy each step.
-The port runs on one device: nothing is sharded (the reference's ZeRO-1
-layout has no counterpart here).
+On a mesh the leaves are ``DTensor``s in the ZeRO-1 layout
+(``launch.steps``' sharded step): the update runs on the local shards and
+the global norm's sums reduce across them.
 """
 from __future__ import annotations
 

@@ -3,9 +3,9 @@
 
 Each gradient is quantized to int8 with a per-tensor scale, and the
 quantization residual is carried to the next step (error feedback keeps
-the accumulated update unbiased).  On one device there is no reduction to
-feed: what lands in the optimizer is the dequantized gradient, the
-numerics of the compressed pipeline.
+the accumulated update unbiased).  What lands in the optimizer is the
+dequantized gradient, the numerics of the compressed pipeline; on a mesh
+the gradients arrive already reduced into the ZeRO layout.
 """
 from __future__ import annotations
 
