@@ -299,7 +299,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the step (48); the median of 3 more sharded steps against phase 19's
    median (the host cost of ``DTensor`` dispatch); ``make_prefill_fn`` /
    ``make_decode_fn`` on the mesh give the same 8 greedy tokens as
-   ``serve.run`` for 4 prompts of 512 tokens; then ``launch.dryrun``'s
+   ``serve.run`` for 4 prompts of 512 tokens, for Qwen1.5-0.5B and for
+   DeepSeek-V2-Lite whole (the MoE's mesh path, MLA's 27 launches through
+   ``spmd.local_call``, the check's seconds printed); then ``launch.dryrun``'s
    prediction for the same cell at (1, 1) (a subprocess on the CPU,
    started at the phase's start: the fake group, the meta device): FLOPs,
    bytes and the roofline bound at the H100's published peaks, and the
@@ -318,8 +320,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    Qwen2-VL's and Whisper's encoder's shapes in ``mla``, ``qwen2_vl`` and
    ``whisper``, and at Jamba's in ``jamba``; RWKV6-3B's path launches it
    no time; the trainer's, ``train``, counted around phase 19's run, and
-   phase 20's sharded step and prefill, ``train_mesh`` and
-   ``serve_mesh``),
+   phase 20's sharded step and prefills, ``train_mesh``, ``serve_mesh``
+   and ``deepseek-v2-lite_mesh``),
    the nvidia-smi line, and
    last the
    ``{"ok": true, "device": ...}`` line.
@@ -4544,6 +4546,36 @@ def dryrun_prediction(shape):
     return proc, out
 
 
+def mesh_serving(arch, mesh, dev):
+    """``serve.run`` of ``arch`` whole (``MESH_SERVE_B`` prompts of
+    ``MESH_PROMPT`` tokens, ``MESH_GEN`` greedy tokens, random weights from
+    seed 0), then the same model and prompts through ``make_prefill_fn`` /
+    ``make_decode_fn`` on ``mesh`` -> (the tokens equal, flash_attention
+    launches in the mesh's prefill, seconds taken)."""
+    t0 = time.perf_counter()
+    run = serve.run(arch, reduced=False, prompt_len=MESH_PROMPT,
+                    gen=MESH_GEN, batch=MESH_SERVE_B, device=dev)
+    s_max = MESH_PROMPT + MESH_GEN + 8
+    pre_shape = configs.ShapeConfig("serve", "prefill", s_max, MESH_SERVE_B)
+    dec_shape = configs.ShapeConfig("serve", "decode", s_max, MESH_SERVE_B)
+    prefill, _ = steps_lib.make_prefill_fn(run.model, mesh, pre_shape)
+    decode, *_ = steps_lib.make_decode_fn(run.model, mesh, dec_shape)
+    flash_kernel.COUNTER.launches = 0
+    caches, logits = prefill(run.batch,
+                             run.model.init_decode(MESH_SERVE_B, s_max))
+    launches = flash_kernel.COUNTER.launches
+    toks = []
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for i in range(MESH_GEN):
+        toks.append(tok)
+        caches, logits = decode(caches, tok, MESH_PROMPT + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    equal = np.array_equal(torch.cat(toks, 1).cpu().numpy(), run.tokens)
+    del run, caches, prefill, decode
+    torch.cuda.empty_cache()
+    return equal, launches, time.perf_counter() - t0
+
+
 def phase_mesh(dev, train_step_ms):
     """Phase 20: the sharded LM stack (``launch.sharding`` /
     ``launch.steps``' mesh path) on a 1 x 1 mesh of the one card, NCCL."""
@@ -4626,34 +4658,28 @@ def phase_mesh(dev, train_step_ms):
     torch.cuda.empty_cache()
 
     # serving: make_prefill_fn / make_decode_fn against serve's tokens
-    run = serve.run(TRAIN_ARCH, reduced=False, prompt_len=MESH_PROMPT,
-                    gen=MESH_GEN, batch=MESH_SERVE_B, device=dev)
-    s_max = MESH_PROMPT + MESH_GEN + 8
-    pre_shape = configs.ShapeConfig("serve", "prefill", s_max, MESH_SERVE_B)
-    dec_shape = configs.ShapeConfig("serve", "decode", s_max, MESH_SERVE_B)
-    prefill, _ = steps_lib.make_prefill_fn(run.model, mesh, pre_shape)
-    decode, *_ = steps_lib.make_decode_fn(run.model, mesh, dec_shape)
-    flash_kernel.COUNTER.launches = 0
-    caches, logits = prefill(run.batch,
-                             run.model.init_decode(MESH_SERVE_B, s_max))
-    serve_launches = flash_kernel.COUNTER.launches
-    toks = []
-    tok = logits[:, -1].argmax(-1)[:, None]
-    for i in range(MESH_GEN):
-        toks.append(tok)
-        caches, logits = decode(caches, tok, MESH_PROMPT + i)
-        tok = logits[:, -1].argmax(-1)[:, None]
-    toks = torch.cat(toks, 1).cpu().numpy()
+    equal, serve_launches, _ = mesh_serving(TRAIN_ARCH, mesh, dev)
     log(f"[mesh] serving through make_prefill_fn / make_decode_fn: "
         f"{MESH_GEN} greedy tokens of {MESH_SERVE_B} prompts of "
-        f"{MESH_PROMPT} equal serve's: {np.array_equal(toks, run.tokens)}; "
-        f"flash_attention launches in the prefill {serve_launches}")
-    check(np.array_equal(toks, run.tokens),
-          f"mesh serving tokens {toks} vs serve {run.tokens}")
+        f"{MESH_PROMPT} equal serve's: {equal}; flash_attention launches "
+        f"in the prefill {serve_launches}")
+    check(equal, f"{TRAIN_ARCH}: mesh serving tokens differ from serve's")
     check(serve_launches == full.n_layers,
           f"mesh prefill launched flash_attention {serve_launches} times")
-    del run, caches, prefill, decode
-    torch.cuda.empty_cache()
+    # DeepSeek-V2-Lite whole the same way: the MoE's mesh path
+    # (moe._local_groups) and MLA's launches through spmd.local_call
+    mla_cfg = configs.get(MLA_ARCH)
+    mla_equal, mla_launches, mla_s = mesh_serving(MLA_ARCH, mesh, dev)
+    log(f"[mesh] {MLA_ARCH} whole through make_prefill_fn / make_decode_fn: "
+        f"{MESH_GEN} greedy tokens of {MESH_SERVE_B} prompts of "
+        f"{MESH_PROMPT} equal serve's: {mla_equal}; flash_attention "
+        f"launches in the prefill {mla_launches}; the check took "
+        f"{mla_s:.1f} s (weights drawn, serve.run, the mesh's prefill and "
+        f"decode)")
+    check(mla_equal, f"{MLA_ARCH}: mesh serving tokens differ from serve's")
+    check(mla_launches == mla_cfg.n_layers, f"{MLA_ARCH}: mesh prefill "
+          f"launched flash_attention {mla_launches} times, expected "
+          f"{mla_cfg.n_layers}")
 
     # the dry run's prediction for the trainer's cell at (1, 1)
     out, _ = proc.communicate(timeout=300)
@@ -4676,6 +4702,7 @@ def phase_mesh(dev, train_step_ms):
     dist.destroy_process_group()
     log(f"[mesh] phase 20 in {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "serve_launches": serve_launches,
+            "mla_serve_launches": mla_launches, "mla_check_s": mla_s,
             "step_ms": step_ms, "loss_equal": loss_equal,
             "diffs": diffs, "prediction": roof, "bound_share": share}
 
@@ -4955,7 +4982,8 @@ def main():
                           RWKV_ARCH: ssm["rwkv"]["launches"],
                           "train": trained["run"]["launches"],
                           "train_mesh": meshed["launches"],
-                          "serve_mesh": meshed["serve_launches"]},
+                          "serve_mesh": meshed["serve_launches"],
+                          f"{MLA_ARCH}_mesh": meshed["mla_serve_launches"]},
         "mla": {k: mla["flash"][k] for k in (
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share", "max_abs_err")},

@@ -17,14 +17,16 @@ text; the port traces one step instead (``launch.dryrun``): ``Trace`` is a
 formulas, their bytes as each op's inputs read once and outputs written
 once (the eager port runs op by op), and the per-rank result bytes of the
 collectives by kind; all-reduce counts twice (reduce-scatter + all-gather
-phases).  The reference's ``scan_corrections`` has no counterpart: XLA's
-cost model counts a ``while`` body once, but the port's trace runs every
-trip of its Python loops (attention's query blocks and KV chunks, the
-recurrences' tokens, the microbatches) and counts each.
+phases).  ``Trace.log`` keeps each collective's kind, its input and result
+shapes, result bytes and process group's name, in the order they ran.  The
+reference's ``scan_corrections`` has no counterpart: XLA's cost model
+counts a ``while`` body once, but the port's trace runs every trip of its
+Python loops (attention's query blocks and KV chunks, the recurrences'
+tokens, the microbatches) and counts each.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -66,6 +68,7 @@ class Trace(TorchDispatchMode):
         self.ops = 0
         self.coll: Dict[str, float] = {k: 0.0 for k in _COLLECTIVES}
         self.coll["count"] = 0
+        self.log: List[Dict[str, Any]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -82,9 +85,18 @@ class Trace(TorchDispatchMode):
         if func.namespace in ("_c10d_functional", "c10d_functional"):
             for key, kind in _KIND:
                 if key in name:
-                    self.coll[kind] += sum(
-                        _nbytes(t) for t in tree_flatten(out)[0])
+                    res = [t for t in tree_flatten(out)[0]
+                           if isinstance(t, torch.Tensor)]
+                    self.coll[kind] += sum(_nbytes(t) for t in res)
                     self.coll["count"] += 1
+                    names = [a for a in flat if isinstance(a, str)]
+                    self.log.append({
+                        "kind": kind,
+                        "in": [list(a.shape) for a in flat
+                               if isinstance(a, torch.Tensor)],
+                        "out": [list(t.shape) for t in res],
+                        "bytes": sum(_nbytes(t) for t in res),
+                        "group": names[-1] if names else None})
                     break
             return out
         self.ops += 1
@@ -106,6 +118,19 @@ class Trace(TorchDispatchMode):
         out["weighted_bytes"] = sum(out[k] * _FACTOR.get(k, 1.0)
                                     for k in _COLLECTIVES)
         return out
+
+
+def by_shape(log: List[Dict[str, Any]], top: int = 16) -> List[list]:
+    """``Trace.log`` grouped by kind, input and result shapes -> the
+    ``top`` groups with the most result bytes, each ``[kind, input
+    shapes, result shapes, count, result bytes]``."""
+    groups: Dict[tuple, list] = {}
+    for rec in log:
+        key = (rec["kind"], str(rec["in"]), str(rec["out"]))
+        g = groups.setdefault(key, [rec["kind"], rec["in"], rec["out"], 0, 0])
+        g[3] += 1
+        g[4] += rec["bytes"]
+    return sorted(groups.values(), key=lambda g: -g[4])[:top]
 
 
 def collective_bytes(fn, *args, **kwargs) -> Dict[str, float]:

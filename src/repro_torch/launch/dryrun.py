@@ -12,9 +12,11 @@ The mesh's ranks are the ``fake`` backend's group in this one process
 the ``meta`` device: the state, batch and caches are ``DTensor``s laid
 out by ``launch.sharding``, and the step runs on their local shards under
 ``analysis.Trace``, which counts each rank's FLOPs, bytes and collective
-bytes.  The port traces the whole depth, so the reference's two-probe
-per-layer extrapolation has no counterpart.  Results land in
-``build/dryrun/<arch>__<shape>__<mesh>.json`` (``--out`` to change).
+bytes, and lists its largest collectives by kind and shape
+(``collectives_by_shape``).  The port traces the whole depth, so the
+reference's two-probe per-layer extrapolation has no counterpart.
+Results land in ``build/dryrun/<arch>__<shape>__<mesh>.json`` (``--out``
+to change).
 """
 from __future__ import annotations
 
@@ -152,6 +154,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, plan_overrides=None,
                    "temp_size_in_bytes_note": NO_TEMP},
         "cost": cost,
         "collectives": coll,
+        "collectives_by_shape": analysis.by_shape(t.log),
         "roofline": roof,
         "plan": {"kv_quant": plan.kv_quant, "microbatches": plan.microbatches,
                  "seq_shard_decode": plan.seq_shard_decode,

@@ -18,7 +18,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.workload.xla_math import tanh_f32
 from repro_torch.models.param import Spec
 from repro_torch.models.sincosf import sincos_f32
-from repro_torch.spmd import is_dtensor
+from repro_torch.spmd import (contiguous_stride, is_dtensor, pair_halves,
+                              redistribute_to, to_local)
 
 NEG = -1e30
 
@@ -127,31 +128,61 @@ def swiglu_spec(d: int, f: int):
             "wo": Spec((f, d), ("ffn", "embed"))}
 
 
-def _tp_halves(wi):
-    """The gate and up halves of a ``DTensor`` [gate | up] weight (d, 2f)
-    whose columns are split over the mesh, each half split the same way:
-    the weight gathered, halved and laid out again.  Split as one, rank r
-    would hold a slice of [gate | up] (all gate, or all up), and the
-    product's halves would be gathered at the size of the activations
-    (tokens x 2f); this gathers the weight (d x 2f) instead, and keeps
-    both products split."""
-    from torch.distributed.tensor import Replicate
+def _split_columns(wi, x):
+    """The mesh dim that splits the columns of a ``DTensor`` weight wi
+    (d, 2f) and does not split the ``DTensor`` x (..., d), else None."""
+    if not (is_dtensor(wi) and is_dtensor(x)):
+        return None
+    from torch.distributed.tensor import Shard
+    for i, (pl, n) in enumerate(zip(wi.placements, wi.device_mesh.shape)):
+        if getattr(pl, "dim", None) == wi.dim() - 1 and n > 1:
+            return None if isinstance(x.placements[i], Shard) else i
+    return None
+
+
+def _swiglu_split(p, x, tp: int):
+    """``swiglu`` where mesh dim ``tp`` splits wi's [gate | up] columns as
+    one: rank r holds gate columns or up columns, so its product has no
+    pair.  ``spmd.pair_halves`` pairs them with one all-to-all, of the
+    local product or of the local weight shard, whichever is smaller
+    (the rank's tokens against the weight's rows), and h keeps its ffn
+    slice for the down projection: no rank gathers the weight, nor the
+    product.  The data axes are gathered where FSDP splits the weight
+    over them; wi's gradient is a partial sum over the data axes that
+    split x, x's over ``tp``.  A pending sum in x is reduced first, as
+    the product would."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    wi = p["wi"]
     mesh = wi.device_mesh
-    whole = wi.redistribute(mesh, tuple(Replicate() for _ in wi.placements))
-    return [h.redistribute(mesh, wi.placements) for h in
-            whole.chunk(2, dim=-1)]
+    x = redistribute_to(x, tuple(Replicate() if isinstance(pl, Partial)
+                                 else pl for pl in x.placements))
+    xl = to_local(x, tuple(Partial() if i == tp else pl
+                           for i, pl in enumerate(x.placements)))
+    w = redistribute_to(wi, tuple(pl if i == tp else Replicate()
+                                  for i, pl in enumerate(wi.placements)))
+    wl = to_local(w, tuple(pl if i == tp else (
+        Partial() if isinstance(q, Shard) else Replicate())
+        for i, (pl, q) in enumerate(zip(w.placements, x.placements))))
+    if xl.numel() // xl.shape[-1] > wl.shape[0]:
+        g, u = (xl @ pair_halves(wl, mesh, tp)).chunk(2, dim=-1)
+    else:
+        g, u = pair_halves(xl @ wl, mesh, tp).chunk(2, dim=-1)
+    h = F.silu(g.float()).to(x.dtype) * u
+    shape = x.shape[:-1] + (wi.shape[-1] // 2,)
+    h = DTensor.from_local(h, mesh, tuple(
+        Shard(h.dim() - 1) if i == tp else pl
+        for i, pl in enumerate(x.placements)), run_check=False,
+        shape=shape, stride=contiguous_stride(shape))
+    return h @ p["wo"]
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    """silu in f32, cast to x's dtype, gate, down projection."""
-    wi = p["wi"]
-    tokens = x.numel() // x.shape[-1]
-    if is_dtensor(wi) and tokens > wi.shape[0] and any(
-            getattr(pl, "dim", None) == wi.dim() - 1 for pl in wi.placements):
-        # more tokens than weight rows: gather the weight, not the products
-        g, u = (x @ w for w in _tp_halves(wi))
-    else:
-        g, u = (x @ wi).chunk(2, dim=-1)
+    """silu in f32, cast to x's dtype, gate, down projection.  On a mesh
+    that splits wi's columns, ``_swiglu_split``."""
+    tp = _split_columns(p["wi"], x)
+    if tp is not None:
+        return _swiglu_split(p, x, tp)
+    g, u = (x @ p["wi"]).chunk(2, dim=-1)
     return (F.silu(g.float()).to(x.dtype) * u) @ p["wo"]
 
 
@@ -234,25 +265,80 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor,
     return logits
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log p(target) per position of local f32 logits (..., V/n), this
+    rank's ``v0``-based slice of a vocab split over ``group``'s n ranks:
+    the max, the sum of exponentials and the target's logit (from the
+    rank whose slice holds it, zeros elsewhere) each reduced over the
+    group, the last two in one all-reduce.  The backward is local,
+    ``g * (softmax - onehot)`` on the rank's own slice: no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, tgt, v0: int, group):
+        import torch.distributed._functional_collectives as funcol
+        m = funcol.wait_tensor(funcol.all_reduce(
+            logits.detach().amax(dim=-1), "max", group))
+        local = tgt - v0
+        zg = torch.stack([(logits - m[..., None]).exp().sum(dim=-1),
+                          torch.where(_onehot(logits, local), logits,
+                                      0.0).sum(dim=-1)])
+        z, gold = funcol.wait_tensor(funcol.all_reduce(zg, "sum", group))
+        ctx.save_for_backward(logits, m, z, local)
+        return z.log() + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, z, local = ctx.saved_tensors
+        p = (logits - m[..., None]).exp() / z[..., None]
+        return (p - _onehot(logits, local).to(p.dtype)) * g[..., None], \
+            None, None, None
+
+
+def _onehot(logits, local):
+    """Where the last dim of ``logits`` is the slice's index ``local``
+    (no entry where the target lies outside the slice)."""
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return ids == local[..., None]
+
+
+def _vocab_parallel_nll(logits, tgt):
+    """-log p(target) per position of a ``DTensor``'s f32 logits (..., V)
+    whose vocab is split over one mesh dim (``_VocabParallelNLL`` on the
+    local shards) -> a ``DTensor`` (...) laid out as the logits' other
+    dims."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    pls = tuple(logits.placements)
+    vd = next(i for i, pl in enumerate(pls) if getattr(pl, "dim", None)
+              in (-1, last))
+    rest = tuple(Replicate() if i == vd else pl for i, pl in enumerate(pls))
+    if not is_dtensor(tgt):
+        tgt = DTensor.from_local(tgt, mesh, tuple(Replicate() for _ in pls),
+                                 run_check=False)
+    tgt = redistribute_to(tgt, rest).to_local()
+    v0 = mesh.get_local_rank(vd) * -(-logits.shape[-1] // mesh.shape[vd])
+    nll = _VocabParallelNLL.apply(to_local(logits), tgt, v0,
+                                  mesh.get_group(vd))
+    shape = logits.shape[:-1]
+    return DTensor.from_local(nll, mesh, rest, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
 def _nll_sum(logits: torch.Tensor, targets: torch.Tensor,
              ignore_id: int = -1):
     """(sum of -log p(target) over the non-ignored targets, their count):
-    logits f32 (..., V), targets (...)."""
+    logits f32 (..., V), targets (...).  On a mesh that splits the vocab
+    the logits stay split, forward and backward
+    (``_vocab_parallel_nll``)."""
     valid = targets != ignore_id
     tgt = torch.clamp(targets, min=0).long()
-    if is_dtensor(logits) and any(getattr(p, "dim", None) in (
-            -1, logits.dim() - 1) for p in logits.placements):
-        # on a mesh that splits the vocab: logsumexp as max, then the sum
-        # of exponentials (each a reduction over the shards, no gather of
-        # the logits), and the target's logit as a sum of one entry and
-        # zeros, the same value
-        m = logits.detach().amax(dim=-1, keepdim=True)
-        logz = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
-        ids = torch.arange(logits.shape[-1], device=tgt.device)
-        gold = torch.where(ids == tgt[..., None], logits, 0.0).sum(dim=-1)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    if is_dtensor(logits) and any(
+            getattr(p, "dim", None) in (-1, logits.dim() - 1)
+            and n > 1 for p, n in zip(logits.placements,
+                                      logits.device_mesh.shape)):
+        return (_vocab_parallel_nll(logits, tgt) * valid).sum(), valid.sum()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
 
 

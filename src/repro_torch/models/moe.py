@@ -14,13 +14,15 @@ Tokens are dispatched in ``dp * pods`` groups (one per data shard, when
 the batch divides), each with its own capacity, as the reference vmaps
 its dispatch over the DP groups; the load-balance auxiliaries stay
 global.  On a device mesh each rank dispatches its own groups on its
-local tokens (``_local_groups``).
+local tokens, with its "model" slice of every expert's ffn dim
+(``_local_groups``).
 
 ``moe_dense_ref`` is a plain reference of the same function for the tests
 and the card check: expert by expert over its kept tokens, summed in f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,7 +32,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import swiglu
 from repro_torch.models.param import Spec
 from repro_torch.models.plan import Plan
-from repro_torch.spmd import is_dtensor, to_local
+from repro_torch.spmd import (grad_once, is_dtensor, pair_halves, placements,
+                              redistribute_to, split_dim, to_local)
 
 # drop-free capacity (moe_capacity <= 0) holds up to this many assignments;
 # past it, twice the mean load of an expert
@@ -91,11 +94,23 @@ def capacity(cfg: ModelConfig, plan: Plan, batch: int, seq: int) -> int:
     return max(1, int(tk / m.n_experts * plan.moe_capacity))
 
 
-def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
-              C: int, routing: bool = False):
+def _experts(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+             pair=None) -> torch.Tensor:
+    """The experts' SwiGLU on their buffers: buf (E, C, D) -> (E, C, D).
+    ``pair`` maps the (E, C, 2f) product to [gate | up] where the mesh
+    splits wi's columns (``spmd.pair_halves``)."""
+    gu = torch.bmm(buf, wi)
+    g, u = (gu if pair is None else pair(gu)).chunk(2, dim=-1)
+    h = F.silu(g.float()).to(buf.dtype) * u
+    return torch.bmm(h, wo)
+
+
+def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+              experts, m, C: int, routing: bool = False):
     """Sort-based dispatch of the tokens xt (T, D), routed by
-    ``route_topk``'s (w, idx) (T, k) -> (y (T, D), dropped share,
-    ``Routing`` or None)."""
+    ``route_topk``'s (w, idx) (T, k), through ``experts`` (the (E, C, D)
+    buffer -> the experts' outputs, ``_experts``) -> (y (T, D), dropped
+    share, ``Routing`` or None)."""
     t, d = xt.shape
     top_k = idx.shape[1]
     n_e = m.n_experts
@@ -118,9 +133,7 @@ def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
     buf[torch.where(keep, slot, n_e * C)] = xt[t_sorted]
     buf = buf[:n_e * C].view(n_e, C, d)
 
-    g, u = torch.bmm(buf, p["wi"]).chunk(2, dim=-1)
-    h = F.silu(g.float()).to(xt.dtype) * u
-    out = torch.bmm(h, p["wo"]).reshape(n_e * C, d)
+    out = experts(buf).reshape(n_e * C, d)
 
     gathered = out[torch.where(keep, slot, 0)] * \
         (w_sorted * keep).to(xt.dtype)[:, None]
@@ -142,18 +155,18 @@ def _dispatch(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
                             slot_tk.view(t, top_k))
 
 
-def _groups(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, p, m,
-            C: int, g: int, routing: bool):
+def _groups(xt: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, experts,
+            m, C: int, g: int, routing: bool):
     """Dispatch xt (T, D), routed by ``route_topk``'s (w, idx), as ``g``
     consecutive token groups -> (y (T, D), each group's dropped share
     (g,), ``Routing`` or None)."""
     t = xt.shape[0]
     if g == 1:
-        y, drop, route = _dispatch(xt, w, idx, p, m, C, routing)
+        y, drop, route = _dispatch(xt, w, idx, experts, m, C, routing)
         return y, drop[None], route
     tg = t // g
     parts = [_dispatch(xt[i * tg:(i + 1) * tg], w[i * tg:(i + 1) * tg],
-                       idx[i * tg:(i + 1) * tg], p, m, C, routing)
+                       idx[i * tg:(i + 1) * tg], experts, m, C, routing)
              for i in range(g)]
     y = torch.cat([r[0] for r in parts])
     drops = torch.stack([r[1] for r in parts])
@@ -169,37 +182,80 @@ def _local_groups(p, x, cfg: ModelConfig, plan: Plan, g: int, C: int):
     """``moe_forward``'s dispatch on a mesh: x (B, S, D) a ``DTensor``
     whose batch is split over the data axes.  Each rank dispatches the
     groups of its local tokens (its data shard is whole groups, or the
-    batch is one group and every rank holds it all) with the experts'
-    weights whole on every rank, and the auxiliaries' sums are reduced
-    over the data axes.  -> (y, logits' softmax sum (E,), top-k counts
-    (E,), dropped shares' sum), the sums replicated ``DTensor``s (so
-    autograd carries ``DTensor`` gradients back to them)."""
+    batch is one group and every rank holds it all), as the reference's
+    ``_dispatch_group`` runs shard-local.  The experts' weights keep
+    their ffn dim split over "model" (the reference's specs): every model
+    rank routes and dispatches the same tokens, runs its ffn slice of
+    every expert (``spmd.pair_halves`` pairs its gate and up columns with
+    one all-to-all, of the product or of the weight shard, whichever is
+    smaller), and combines its partial sum over the slice; y is reduced
+    over "model" into the activation's layout (a reduce-scatter onto the
+    sequence split of ``plan.act_pspec``, else an all-reduce).  Only the
+    data axes are gathered where FSDP splits a weight over them; a
+    weight's gradient is a partial sum over the data axes that split the
+    tokens (the router's also over "model").  -> (y, logits' softmax sum
+    (E,), top-k counts (E,), dropped shares' sum), the sums replicated
+    ``DTensor``s (so autograd carries ``DTensor`` gradients back to
+    them)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     m = cfg.moe
     b, s, d = x.shape
     mesh = x.device_mesh
+    tp = split_dim(mesh, "model")
     # the mesh dims that keep the batch split: data axes, with groups
     batch_dims = [g > 1 and name != "model" and getattr(pl, "dim", None) == 0
                   for pl, name in zip(x.placements, mesh.mesh_dim_names)]
-    x = x.redistribute(mesh, tuple(pl if keep else Replicate() for pl, keep
-                                   in zip(x.placements, batch_dims)))
-    # each rank's gradient of the whole weights covers its own tokens: a
-    # partial sum over the mesh dims that split them
+    x = redistribute_to(x, tuple(pl if keep else Replicate() for pl, keep
+                                 in zip(x.placements, batch_dims)))
+    # each rank's gradient covers its own tokens: a partial sum over the
+    # mesh dims that split them
     split = tuple(Partial() if keep else Replicate() for keep in batch_dims)
-    names = ("router", "wi", "wo") + (
-        ("shared_wi", "shared_wo") if m.n_shared else ())
-    whole = {k: p[k].full_tensor(grad_placements=split) if is_dtensor(p[k])
-             else p[k] for k in names}
-    xl = to_local(x)
+
+    def local(w, model_grad=None):
+        """w's local shard, FSDP's split over the data axes gathered and
+        "model"'s kept; its gradient ``model_grad`` on "model" (by default
+        its own placement there)."""
+        if not is_dtensor(w):
+            return w
+        w = redistribute_to(w, tuple(pl if i == tp else Replicate()
+                                     for i, pl in enumerate(w.placements)))
+        return to_local(w, tuple((model_grad or pl) if i == tp else split[i]
+                                 for i, pl in enumerate(w.placements)))
+    router = local(p["router"], Partial())
+    wi, wo = local(p["wi"]), local(p["wo"])
+    # under TP the tokens' gradient is a partial sum over "model" (each
+    # rank adds its ffn slice's part)
+    xl = to_local(x, tuple(Partial() if i == tp else pl
+                           for i, pl in enumerate(x.placements)))
     bl = xl.shape[0]
     xt = xl.reshape(bl * s, d)
-    logits = xt.float() @ whole["router"].float()
+    logits = xt.float() @ router.float()
     w, idx = route_topk(logits, m.top_k)
-    y, drops, _ = _groups(xt, w, idx, whole, m, C, max(1, bl * g // b),
-                          False)
+    ng = max(1, bl * g // b)
+    pair = None
+    if tp is not None and wi.shape[-1] < p["wi"].shape[-1]:
+        if ng * C > d:
+            wi = pair_halves(wi, mesh, tp)      # the weight shard is smaller
+        else:
+            pair = functools.partial(pair_halves, mesh=mesh, dim=tp)
+    y, drops, _ = _groups(
+        xt, w, idx, functools.partial(_experts, wi=wi, wo=wo, pair=pair), m,
+        C, ng, False)
+    y = DTensor.from_local(
+        y.reshape(bl, s, d), mesh,
+        tuple(Partial() if i == tp else pl
+              for i, pl in enumerate(x.placements)),
+        run_check=False, shape=x.shape, stride=x.stride())
     if m.n_shared:
-        y = y + swiglu({"wi": whole["shared_wi"],
-                        "wo": whole["shared_wo"]}, xt)
+        y = y + swiglu({"wi": p["shared_wi"], "wo": p["shared_wo"]}, x)
+    want = placements(plan.act_pspec, mesh) if plan.act_pspec is not None \
+        else tuple(Replicate() if i == tp else pl
+                   for i, pl in enumerate(x.placements))
+    y = redistribute_to(y, want)
+    if tp is not None:
+        # the logits' gradient is a partial sum over "model": the
+        # auxiliaries', alike on every model rank, joins it once
+        logits = grad_once(logits, mesh, tp)
     flat = idx.reshape(-1)
     counts = logits.new_zeros(m.n_experts).index_add_(
         0, flat, torch.ones_like(flat, dtype=torch.float32))
@@ -207,9 +263,6 @@ def _local_groups(p, x, cfg: ModelConfig, plan: Plan, g: int, C: int):
     whole_sum = tuple(Replicate() for _ in split)
     sums = [DTensor.from_local(t, mesh, split, run_check=False)
             .redistribute(mesh, whole_sum) for t in sums]
-    y = DTensor.from_local(y.reshape(bl, s, d).contiguous(), mesh,
-                           x.placements,
-                           run_check=False, shape=x.shape, stride=x.stride())
     return (y, *sums)
 
 
@@ -239,7 +292,9 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: Plan, *,
     xt = x.reshape(b * s, d)
     logits = xt.float() @ p["router"].float()               # (T, E)
     w, idx = route_topk(logits, m.top_k)                    # (T, k)
-    y, drops, route = _groups(xt, w, idx, p, m, C, g, routing)
+    y, drops, route = _groups(
+        xt, w, idx, functools.partial(_experts, wi=p["wi"], wo=p["wo"]), m,
+        C, g, routing)
     if m.n_shared:
         y = y + swiglu({"wi": p["shared_wi"], "wo": p["shared_wo"]}, xt)
 

@@ -101,9 +101,94 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def to_local(x: DTensor) -> torch.Tensor:
-    """``x.to_local()``, its gradient contiguous."""
-    return _ContiguousGrad.apply(x.to_local())
+def to_local(x: DTensor, grad_placements=None) -> torch.Tensor:
+    """``x.to_local()``, its gradient contiguous; ``grad_placements`` says
+    what the local gradient is (a ``Partial()`` where each rank's is a
+    part of a sum), as ``DTensor.to_local``'s."""
+    return _ContiguousGrad.apply(x.to_local(grad_placements=grad_placements))
+
+
+def split_dim(mesh, name: str) -> Optional[int]:
+    """The index of mesh dim ``name`` where it has more than one rank,
+    else None (a dim of one rank splits nothing)."""
+    names = mesh.mesh_dim_names
+    if name not in names or mesh.shape[names.index(name)] == 1:
+        return None
+    return names.index(name)
+
+
+def _all_to_all(x: torch.Tensor, out_splits, in_splits, group):
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), out_splits, in_splits, group))
+
+
+def pair_plan(n: int, r: int):
+    """``pair_halves``' all-to-all for rank r of n (n > 1) -> (swap, blocks
+    sent to each rank, blocks received from each rank).  Rank r holds
+    blocks 2r and 2r + 1 of the 2n column blocks of [gate | up]; block b
+    is half b // n's slice b % n and goes to rank b % n, so its two blocks
+    are sent in that order of ranks (swapped where it wraps).  Rank r
+    takes its gate block from rank r // 2 and its up block from rank
+    (n + r) // 2, gate first."""
+    dest = [(2 * r) % n, (2 * r + 1) % n]
+    return (dest[0] > dest[1], [dest.count(k) for k in range(n)],
+            [int(k in (r // 2, (n + r) // 2)) for k in range(n)])
+
+
+class _PairHalves(torch.autograd.Function):
+    """``pair_halves``' all-to-all; its backward sends the gradient back
+    with the reverse one."""
+
+    @staticmethod
+    def forward(ctx, t, group, n: int, r: int):
+        ctx.swap, ctx.ins, ctx.outs = pair_plan(n, r)
+        ctx.group = group
+        blocks = t.unflatten(-1, (2, t.shape[-1] // 2)).movedim(-2, 0)
+        if ctx.swap:
+            blocks = blocks.flip(0)
+        out = _all_to_all(blocks, ctx.outs, ctx.ins, group)
+        return out.movedim(0, -2).flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks = g.unflatten(-1, (2, g.shape[-1] // 2)).movedim(-2, 0)
+        back = _all_to_all(blocks, ctx.ins, ctx.outs, ctx.group)
+        if ctx.swap:
+            back = back.flip(0)
+        return back.movedim(0, -2).flatten(-2), None, None, None
+
+
+def pair_halves(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """t (..., 2w), this rank's slice of a [gate | up] last dim split in
+    equal parts over mesh dim ``dim`` (so a rank holds gate columns, up
+    columns, or, for an odd count, some of each) -> (..., 2w) = [gate_j |
+    up_j], the j-th w-wide slice of each half on rank j.  One all-to-all
+    over the mesh dim moves each rank's two blocks; no rank gathers more
+    than its own 2w columns."""
+    return _PairHalves.apply(t, mesh.get_group(dim), mesh.shape[dim],
+                             mesh.get_local_rank(dim))
+
+
+class _GradOnFirst(torch.autograd.Function):
+    """The identity, whose gradient is kept on the first rank of a group
+    and zeroed on the others."""
+
+    @staticmethod
+    def forward(ctx, x, keep: bool):
+        ctx.keep = keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
+def grad_once(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """x, a value every rank of mesh dim ``dim`` computes alike, whose
+    gradient is to join a sum over that dim's ranks: the gradient is kept
+    on its first rank only, so the sum counts it once."""
+    return _GradOnFirst.apply(x, mesh.get_local_rank(dim) == 0)
 
 
 def local_call(fn: Callable, args: Sequence, dims: Sequence[int]):
@@ -127,10 +212,10 @@ def local_call(fn: Callable, args: Sequence, dims: Sequence[int]):
             shape[d] = out.shape[d]
     return DTensor.from_local(out, lead.device_mesh, want, run_check=False,
                               shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+                              stride=contiguous_stride(shape))
 
 
-def _contiguous_stride(shape) -> tuple:
+def contiguous_stride(shape) -> tuple:
     stride, acc = [], 1
     for n in reversed(shape):
         stride.append(acc)

@@ -15,6 +15,11 @@
   Their ``argument_size_in_bytes`` equals the bytes summed from the
   reference's shard shapes of the same leaves (train state and batch),
   and the CLI writes its JSON with the reference's keys where asked.
+* DeepSeek-V2-Lite ``decode_32k`` on (2, 16, 16), a subprocess under
+  40 s: the MoE keeps its experts' ffn dim split over "model", so a
+  rank gathers at most 5e8 bytes and moves at most 1e9 in all, and the
+  cell is not bound by its collectives (it was, at 2.977e10 gathered
+  bytes, when every rank took the experts whole).
 
 Run as a script (``--case``), the file is one of those subprocesses.
 """
@@ -123,6 +128,23 @@ def _counts(out):
     json.dump(res, open(out, "w"))
 
 
+def test_by_shape_groups_the_log():
+    """``analysis.by_shape`` groups ``Trace.log`` by kind and shapes, the
+    most result bytes first, and keeps the ``top`` groups."""
+    from repro_torch.launch.analysis import by_shape
+    ag = {"kind": "all-gather", "in": [[2, 3]], "out": [[4, 3]],
+          "bytes": 48, "group": "1"}
+    ar = {"kind": "all-reduce", "in": [[5]], "out": [[5]], "bytes": 20,
+          "group": "2"}
+    big = dict(ar, bytes=400)
+    log = [ag, ar, ag, ag, dict(ag, kind="all-to-all"), big]
+    assert by_shape(log) == [
+        ["all-reduce", [[5]], [[5]], 2, 420],
+        ["all-gather", [[2, 3]], [[4, 3]], 3, 144],
+        ["all-to-all", [[2, 3]], [[4, 3]], 1, 48]]
+    assert by_shape(log, top=1) == by_shape(log)[:1]
+
+
 def test_trace_counts_match_hand_counts(tmp_path):
     out = tmp_path / "counts.json"
     _run([os.path.abspath(__file__), "--case", "counts", str(out)])
@@ -216,10 +238,36 @@ def test_dryrun_cell_argument_bytes_match_reference(name, tmp_path):
         assert res["plan"]["tp"] == 16 and res["plan"]["sp"]
 
 
+def _moe_decode(out):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_fake(512)
+    mesh = mesh_lib.make_production_mesh(multi_pod=True, device_type="cpu")
+    json.dump(dryrun.lower_cell("deepseek-v2-lite", "decode_32k", mesh),
+              open(out, "w"))
+
+
+def test_moe_decode_cell_keeps_experts_split(tmp_path):
+    out = tmp_path / "cell.json"
+    _run([os.path.abspath(__file__), "--case", "moe-decode", str(out)],
+         timeout=120)
+    res = json.load(open(out))
+    coll = res["collectives"]
+    assert res["mesh"] == "2x16x16" and res["plan"]["tp"] == 16
+    assert coll["all-gather"] <= 5e8, coll
+    assert coll["total_bytes"] <= 1e9, coll
+    assert coll["all-to-all"] > 0, coll
+    assert any(g[0] == "all-to-all" for g in res["collectives_by_shape"])
+    assert res["roofline"]["bottleneck"] != "collective_s", res["roofline"]
+    assert res["trace_s"] < 40, res["trace_s"]
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     case, out = sys.argv[2], sys.argv[3]
     if case == "counts":
         _counts(out)
+    elif case == "moe-decode":
+        _moe_decode(out)
     else:
         _cell(out, case)

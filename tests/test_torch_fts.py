@@ -7,11 +7,18 @@ the JAX side vmaps one store per lane, the port carries the lanes as its
 leading axis.  Every FTS leaf and every returned value is compared bitwise
 after every transaction, over the four replacement policies, with padding
 (``n_slots < max_slots``), out-of-order invalidations and an insertion
-threshold."""
+threshold.
+
+The hypothesis properties of ``tests/test_fts.py`` (the store's
+invariants under a random workload, per policy) and
+``tests/test_padded_fts.py`` (a padded store equals an unpadded one) run
+on the port, and each drawn sequence is also replayed through the JAX
+package's store: every step's outcome and the final store equal."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -20,6 +27,9 @@ from repro_torch.core import fts as tfts
 
 LANES = 3
 BMAX = 31
+POLICIES = ("row_benefit", "segment_benefit", "lru", "random")
+SLOTS, SPR = 16, 4            # 4 rows x 4 segments
+MAX_SLOTS, MAX_SEGS = 48, 8   # tests/test_padded_fts.py's padded store
 
 
 def _np(fts):
@@ -154,6 +164,112 @@ def test_gather_row_clips_like_jax():
     want = [np.asarray(jfts.gather_row(jnp.asarray(benefit), jnp.int32(r),
                                        4, 3)) for r in rows]
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
+
+
+# ---------------------------------------------------------------------------
+# hypothesis properties (tests/test_fts.py, tests/test_padded_fts.py)
+
+def _seg(s):
+    return torch.tensor([s], dtype=torch.int32)
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.lists(st.integers(0, 200), min_size=1, max_size=80),
+       st.sampled_from(POLICIES))
+def test_fts_invariants_under_random_workload_match_jax(segs, policy):
+    """Valid tags stay unique, a lookup after an insert hits, benefit
+    saturates at 31; each step's hit and slot, and the final store,
+    equal the JAX package's on the same sequence."""
+    j = jfts.init(SLOTS, SPR)
+    p = tfts.init_lanes(1, SLOTS, SPR, device="cpu")
+    for step, s in enumerate(segs):
+        jhit, jslot = jfts.lookup(j, jnp.int32(s))
+        hit, slot = tfts.lookup(p, _seg(s))
+        assert (bool(hit[0]), int(slot[0])) == (bool(jhit), int(jslot)), step
+        if bool(hit[0]):
+            j = jfts.touch(j, jslot, jnp.bool_(False), jnp.int32(step), BMAX,
+                           SPR)
+            p = tfts.touch(p, slot, False, step, BMAX, SPR)
+        else:
+            j = jfts.insert(j, jnp.int32(s), jnp.bool_(False),
+                            jnp.int32(step), policy=policy,
+                            segs_per_row=SPR).fts
+            p = tfts.insert(p, _seg(s), False, step, policy=policy,
+                            segs_per_row=SPR).fts
+            assert bool(tfts.lookup(p, _seg(s))[0][0])
+    tags = p.tags[0][p.valid[0]].tolist()
+    assert len(set(tags)) == len(tags)
+    assert int(p.benefit.max()) <= BMAX
+    _assert_fts_equal(jax.tree.map(lambda a: a[None], j), p, policy)
+
+
+def _port_replay(segs, policy, max_slots, max_segs):
+    """``tests/test_padded_fts.py``'s replay (threshold 1, ``SLOTS`` active
+    slots of ``SPR`` a row) on the port -> (store, event log)."""
+    p = tfts.init_lanes(1, max_slots, max_segs, device="cpu")
+    log = []
+    for step, s in enumerate(segs):
+        hit, slot = tfts.lookup(p, _seg(s))
+        if bool(hit[0]):
+            p = tfts.touch(p, slot, step % 3 == 0, step, BMAX, SPR)
+            log.append(("hit", int(slot[0])))
+            continue
+        want, p = tfts.should_insert(p, _seg(s), 1)
+        if not bool(want[0]):
+            log.append(("defer",))
+            continue
+        res = tfts.insert(p, _seg(s), False, step, policy=policy,
+                          segs_per_row=SPR, n_slots=SLOTS)
+        p = res.fts
+        log.append(("ins", int(res.slot[0]), bool(res.evicted_valid[0]),
+                    bool(res.evicted_dirty[0]), int(res.evicted_tag[0])))
+    return p, log
+
+
+def _jax_replay(segs, policy):
+    """The same replay on the JAX package's padded store."""
+    j = jfts.init(MAX_SLOTS, MAX_SEGS)
+    log = []
+    for step, s in enumerate(segs):
+        hit, slot = jfts.lookup(j, jnp.int32(s))
+        if bool(hit):
+            j = jfts.touch(j, slot, jnp.bool_(step % 3 == 0),
+                           jnp.int32(step), BMAX, SPR)
+            log.append(("hit", int(slot)))
+            continue
+        want, j = jfts.should_insert(j, jnp.int32(s), 1)
+        if not bool(want):
+            log.append(("defer",))
+            continue
+        res = jfts.insert(j, jnp.int32(s), jnp.bool_(False), jnp.int32(step),
+                          policy=policy, segs_per_row=SPR, n_slots=SLOTS)
+        j = res.fts
+        log.append(("ins", int(res.slot), bool(res.evicted_valid),
+                    bool(res.evicted_dirty), int(res.evicted_tag)))
+    return j, log
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.lists(st.integers(0, 60), min_size=1, max_size=50),
+       st.sampled_from(POLICIES))
+def test_padded_fts_equivalence_property_matches_jax(segs, policy):
+    """A padded port store (48 slots, 8 a row) equals an unpadded one of
+    ``SLOTS`` on the same sequence: the same events, the same active
+    slots and eviction state, the padding untouched; and the padded
+    store equals the JAX package's padded store, event and leaf."""
+    pad, log_pad = _port_replay(segs, policy, MAX_SLOTS, MAX_SEGS)
+    ref, log_ref = _port_replay(segs, policy, SLOTS, SPR)
+    jpad, jlog = _jax_replay(segs, policy)
+    assert log_pad == log_ref == jlog
+    for name in ("tags", "valid", "dirty", "benefit", "last_use"):
+        a, r = getattr(pad, name)[0], getattr(ref, name)[0]
+        assert torch.equal(a[:SLOTS], r), name
+    assert not pad.valid[0, SLOTS:].any()
+    assert (pad.tags[0, SLOTS:] == -1).all()
+    assert int(pad.evict_row[0]) == int(ref.evict_row[0])
+    assert torch.equal(pad.evict_mask[0, :SPR], ref.evict_mask[0])
+    assert not pad.evict_mask[0, SPR:].any()
+    _assert_fts_equal(jax.tree.map(lambda a: a[None], jpad), pad, policy)
 
 
 @pytest.fixture

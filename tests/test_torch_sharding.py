@@ -14,14 +14,19 @@ sharded steps of ``launch/steps.py``) against the JAX package.
   bitwise the reference's (output, ``dropped_frac``, load-balance loss
   within 1e-6 relative) on the reduced DeepSeek-V2-Lite and Mixtral.
 * **Gloo worlds.** (dp, tp) = (2, 1), (1, 2) and (2, 2) on the reduced
-  Qwen1.5-0.5B and (2, 1) on the reduced DeepSeek-V2-Lite, one process a
-  rank on the CPU: one sharded train step against the port's one-device
-  step from the same f32 weights and batch (loss within 1e-6 relative,
-  every gradient within 1e-5 relative L2, every updated f32 master within
-  1e-6 of its largest entry), a sharded prefill and 4 decode steps
-  against the one-device ones in f32 (logits within 1e-4; the model
-  tests' bound is 2e-2), and each rank's local shapes against the
-  reference's shard shapes.
+  Qwen1.5-0.5B and on the reduced DeepSeek-V2-Lite (4 experts,
+  ``d_expert`` 48, one shared expert), one process a rank on the CPU:
+  one sharded train step against the port's one-device step from the
+  same f32 weights and batch (loss within 1e-6 relative, every gradient
+  within 1e-5 relative L2, every updated f32 master within 1e-6 of its
+  largest entry), a sharded prefill and 4 decode steps against the
+  one-device ones in f32 (logits within 1e-4; the model tests' bound is
+  2e-2), and each rank's local shapes against the reference's shard
+  shapes.
+* **Collectives.** Rank 0's collectives in those steps
+  (``analysis.Trace.log``): no all-gather makes a routed expert weight
+  whole or gathers its ffn slices over "model", and with the vocab
+  split no collective moves the logits' gradient.
 
 Run as a script, the file is one rank of a gloo world (``--worker``) or a
 dump (``--port-dump``); the tests start those processes.
@@ -46,7 +51,9 @@ MESHES = {"1x1": (1, 1), "2x2": (2, 2), "16x16": (16, 16),
 WORLDS = {"qwen-2x1": ("qwen1.5-0.5b", 2, 1),
           "qwen-1x2": ("qwen1.5-0.5b", 1, 2),
           "qwen-2x2": ("qwen1.5-0.5b", 2, 2),
-          "deepseek-2x1": ("deepseek-v2-lite", 2, 1)}
+          "deepseek-2x1": ("deepseek-v2-lite", 2, 1),
+          "deepseek-1x2": ("deepseek-v2-lite", 1, 2),
+          "deepseek-2x2": ("deepseek-v2-lite", 2, 2)}
 SMALL = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
 TRAIN_B, TRAIN_S = 4, 32
 SERVE_B, PROMPT, GEN = 4, 16, 4
@@ -448,6 +455,40 @@ def test_moe_groups_match_reference(arch, groups):
                                atol=2e-2 + 2 ** -7, rtol=0)
 
 
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 16])
+def test_pair_plan_routes_gate_and_up(n):
+    """``spmd.pair_plan`` simulated over all n ranks of one all-to-all:
+    rank j ends with [gate_j | up_j] of a [gate | up] dim split in n equal
+    parts, and the reverse all-to-all (the backward's) returns every
+    rank's own blocks."""
+    from repro_torch.spmd import pair_plan
+    w = 3
+    whole = np.concatenate([np.arange(n * w), 1000 + np.arange(n * w)])
+    plans = [pair_plan(n, r) for r in range(n)]
+
+    def all_to_all(inputs, sends, recvs):
+        chunks = []
+        for x, s in zip(inputs, sends):
+            cut = np.cumsum([0] + s)
+            chunks.append([x[a:b] for a, b in zip(cut[:-1], cut[1:])])
+        out = []
+        for j in range(n):
+            got = [chunks[k][j] for k in range(n)]
+            assert [len(g) for g in got] == recvs[j]
+            out.append(np.concatenate(got))
+        return out
+    blocks = [whole[r * 2 * w:(r + 1) * 2 * w].reshape(2, w)
+              for r in range(n)]
+    sent = [b[::-1] if swap else b for b, (swap, _, _) in zip(blocks, plans)]
+    got = all_to_all(sent, [p[1] for p in plans], [p[2] for p in plans])
+    for j, g in enumerate(got):
+        assert (g[0] == np.arange(j * w, (j + 1) * w)).all(), (n, j)
+        assert (g[1] == 1000 + np.arange(j * w, (j + 1) * w)).all(), (n, j)
+    back = all_to_all(got, [p[2] for p in plans], [p[1] for p in plans])
+    for r, (b, (swap, _, _)) in enumerate(zip(back, plans)):
+        assert (b[::-1] if swap else b).tolist() == blocks[r].tolist(), r
+
+
 # --------------------------------------------------------------------------
 # Gloo worlds
 # --------------------------------------------------------------------------
@@ -461,6 +502,7 @@ def _worker(rank, world, dp, tp, port, arch, out):
     from repro_torch import configs
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
+    from repro_torch.launch.analysis import Trace
     from repro_torch.models import build_model
     from repro_torch.models.plan import Plan
     mesh = mesh_lib.make_test_mesh(dp, tp, device_type="cpu")
@@ -485,8 +527,7 @@ def _worker(rank, world, dp, tp, port, arch, out):
     real = steps.adamw_update
 
     def spy(grads, opt, lr):
-        seen.append({n: steps.full(x).detach().clone()
-                     for n, x in grads.items()})
+        seen.append({n: x.detach().clone() for n, x in grads.items()})
         return real(grads, opt, lr=lr)
     steps.adamw_update = spy
     m1, s1 = trainer(None)
@@ -501,10 +542,13 @@ def _worker(rank, world, dp, tp, port, arch, out):
                     for n, p in m2.named_parameters()}
     res["zlocal"] = {n: list(x.to_local().shape)
                      for n, x in s2["opt"].m.items()}
-    s2, met2 = step(s2, batch)
+    with Trace() as t:
+        s2, met2 = step(s2, batch)
+    res["coll"] = {"train": t.log}
+    res["model_group"] = mesh.get_group("model").group_name
     masters = {n: steps.full(x) for n, x in s2["opt"].master.items()}
     params = {n: steps.full(x) for n, x in s2["params"].items()}
-    g1, g2 = seen
+    g1, g2 = ({n: steps.full(x) for n, x in g.items()} for g in seen)
     res["loss"] = [met1["loss"].item(), met2["loss"].item()]
     res["grad_rel"] = max(float((g1[n] - g2[n]).norm() /
                                 g1[n].norm().clamp(min=1e-30)) for n in g1)
@@ -530,13 +574,18 @@ def _worker(rank, world, dp, tp, port, arch, out):
                          ref.init_decode(SERVE_B, sshape.seq_len))
     pre, _ = steps.make_prefill_fn(model, mesh, sshape)
     dec, _, c_sh, _ = steps.make_decode_fn(model, mesh, dshape)
-    c2, l2 = pre({"tokens": prompt}, model.init_decode(SERVE_B,
-                                                      sshape.seq_len))
+    with Trace() as t:
+        c2, l2 = pre({"tokens": prompt}, model.init_decode(SERVE_B,
+                                                          sshape.seq_len))
+    res["coll"]["prefill"] = t.log
     errs = [float((l1 - l2).abs().max())]
     tok = l1[:, -1].argmax(-1)[:, None]
+    res["coll"]["decode"] = []
     for i in range(GEN):
         c1, l1 = ref.decode_step(c1, tok, PROMPT + i)
-        c2, l2 = dec(c2, tok, PROMPT + i)
+        with Trace() as t:
+            c2, l2 = dec(c2, tok, PROMPT + i)
+        res["coll"]["decode"] += t.log
         errs.append(float((l1 - l2).abs().max()))
         tok = l1[:, -1].argmax(-1)[:, None]
     res["serve_err"] = max(errs)
@@ -607,6 +656,50 @@ def test_gloo_world(world, ref_dump, gloo_results):
             continue       # the reference split its layer axis
         want = r["z"]["shard"][1:] if stacked else r["z"]["shard"]
         assert local == want, (name, local, want)
+
+
+def _gathered(rec):
+    """The shapes an all-gather's result may stand for: its own, and its
+    input's with one dim times the group's size (``DTensor`` gathers
+    along dim 0, then moves the blocks to the gathered dim)."""
+    src, out = rec["in"][0], rec["out"][0]
+    n = out[0] // src[0] if src and src[0] else 1
+    return [out] + [src[:i] + [src[i] * n] + src[i + 1:]
+                    for i in range(len(src))]
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_gloo_world_collectives(world, gloo_results):
+    """The collectives rank 0 ran in its sharded train step, prefill
+    and decode steps (``analysis.Trace.log``): no all-gather over "model"
+    makes a routed expert weight whole, (E, d, 2f) or (E, f, d), or
+    gathers its f-slices into a half (E, d, f) or (E, d, 2, f) (ZeRO's
+    gathers of the updated shards over "data" are the reference's);
+    with the vocab split over "model" no collective moves a
+    (B, S, V / tp) logits gradient, of the global or the local batch."""
+    from repro_torch import configs
+    arch, dp, tp = WORLDS[world]
+    res = gloo_results[world]
+    assert isinstance(res, dict), res
+    cfg = configs.get_reduced(arch)
+    recs = [r for part in res["coll"].values() for r in part]
+    if tp > 1:
+        assert any(r["kind"] == "all-reduce" for r in res["coll"]["train"])
+    if cfg.moe is not None:
+        e, d = cfg.moe.n_experts, cfg.d_model
+        f = -(-cfg.moe.d_expert // tp) * tp
+        whole = [[e, d, 2 * f], [e, f, d], [e, d, f], [e, d, 2, f]]
+        for r in recs:
+            if r["kind"] == "all-gather" and r["group"] == \
+                    res["model_group"]:
+                assert not any(sh in whole for sh in _gathered(r)), r
+        if tp > 1:
+            assert any(r["kind"] == "all-to-all" for r in recs)
+    if tp > 1:
+        v = -(-cfg.vocab_size // max(256, tp)) * max(256, tp) // tp
+        grad = [[TRAIN_B, TRAIN_S, v], [TRAIN_B // dp, TRAIN_S, v]]
+        for r in res["coll"]["train"]:
+            assert not any(sh in grad for sh in r["in"] + r["out"]), r
 
 
 if __name__ == "__main__":
