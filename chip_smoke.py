@@ -4,7 +4,8 @@ device workload generator and fault-tolerant sweep orchestrator too), the
 FIGCache-KV serving path, the LM serving paths (dense; MoE with MLA;
 the sliding-window ring cache; a VLM with the int8 KV cache; Whisper;
 Mamba in Jamba and RWKV-6), training on one device, and the sharded
-stack's train, prefill and decode steps on a 1 x 1 mesh.
+stack's train, prefill and decode steps on a 1 x 1 mesh; then the paper's
+figures through ``repro_torch.figures`` and the quickstart example.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    equal to the monolithic run; each route's wall time, peak device memory
    and launches, and the host's shares (trace building, scheduling,
    encode, decode, checkpoint save and restore);
-11. controller grid: fig 16's grid (benchmarks/fig16_scheduler.py, copied):
+11. controller grid: fig 16's grid (``figures.fig16_scheduler.SCHEDS``):
    5 controllers x {base, figcache_fast} on workloads 5 and 17 at 12288
    requests per channel through ``simulator.sweep`` (10 launches a
    workload), its speedup summary; one group of workload 5 at 1024
@@ -133,8 +134,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    p99 / p999 with their bucket brackets, the SLO rate and
    figcache_fast's p99 gain; the tax at that trace's figcache_fast group
    (CUDA events, in turns) and on the monolithic route's wall;
-13. workload engine: fig 17's grid (benchmarks/fig17_scenarios.py:21,
-   common.scenario_specs, copied): the six families' presets at 8 cores x
+13. workload engine: fig 17's grid (``figures.fig17_scenarios.MECHS``,
+   ``figures.common.scenario_specs``): the six families' presets at 8 cores x
    4 channels x 6144 requests, seed 2, generated on the card and replayed
    x 5 mechanisms through ``simulator.sweep_traces(specs, cfgs)`` (sim_scan
    launches counted from 0 around it), its speedup summary; the results
@@ -306,14 +307,26 @@ Phases, each of which raises (non-zero exit) on any failed check:
    started at the phase's start: the fake group, the meta device): FLOPs,
    bytes and the roofline bound at the H100's published peaks, and the
    measured step's share of that bound beside the nvidia-smi line;
-21. summary: one ``{"kernels": [...]}`` JSON line (device times from
+21. figures: ``python -m repro_torch.figures``'s figures in-process at the
+   full sizes (figs 3, 7-17 and the tail-latency figure, a fresh figure
+   cache): each summary equal to FIG_GOLD, the JAX package's summaries at
+   those sizes, key by key; each figure's sim_scan launches, counted from
+   0 around it, equal to FIG_LAUNCHES (static groups x traces or
+   segments; figs 9-11 none after fig 8) and no standalone fts_lookup
+   launch; each figure's wall and the total against FIG_BUDGET_S; the
+   paper's numbers beside the reproduced ones; then
+   ``examples/torch_quickstart.py`` on the default device, its markers
+   and its launches checked (3 sim_scan, 1 figaro_reloc, 4
+   flash_attention);
+22. summary: one ``{"kernels": [...]}`` JSON line (device times from
    CUDA-graph replay; sim_scan's from CUDA events around one launch, its
    plain version's the eager loop's group wall, with its chain bound
    beside the byte bound; fts_lookup's launches are the main path's, 0,
    since it runs inlined in sim_scan, and its launches through the eager
    loop a field apart; figaro_reloc's are the embedding cache's, its figkv
    launches, 0, a field apart; sim_scan's launches on each simulator path
-   of phases 4 and 9-15, counted from 0 around it, in ``path_launches``,
+   of phases 4, 9-15 and 21, counted from 0 around it, in
+   ``path_launches``,
    and its telemetry instantiation's time and tax, ``tel_ms`` /
    ``tel_tax``; flash_attention's launches on each LM path, counted from
    0 around its prefill, in ``path_launches``, and its times at MLA's,
@@ -333,8 +346,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import pathlib
+import runpy
 import statistics
 import subprocess
 import sys
@@ -400,9 +415,12 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.figures import __main__ as fig_cli  # noqa: E402
+from repro_torch.figures import common as fig_common  # noqa: E402
+from repro_torch.figures import fig16_scheduler, fig17_scenarios  # noqa: E402
 
-FIG8_WORKLOADS = (0, 2, 5, 7, 10, 12, 15, 17)   # benchmarks/common.py ALL_WL
-PER_CHANNEL = 6144                              # common.QUICK_REQS_8CORE
+FIG8_WORKLOADS = fig_common.ALL_WL               # the figures' fig-8 set
+PER_CHANNEL = fig_common.FULL.reqs_8core        # 6144
 N_CHANNELS = 4
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12                        # dense tensor-core peak
@@ -554,20 +572,12 @@ INTERIOR_GOLDEN = {
 LONG_WORKLOAD, LONG_PER_CHANNEL, LONG_CHUNK, LONG_KILL = 0, 65536, 8192, 5
 LONG_SCHED = timing.SchedConfig("frfcfs", queue_depth=16, write_drain=True,
                                 drain_batch=16)
-# fig 16's grid (benchmarks/fig16_scheduler.py:24-30 and :37-43): five
-# controllers x {base, figcache_fast} on workloads 5 and 17 (common.WL_IDX
-# [50][0], [100][1]) at common.LONG_REQS_8CORE requests per channel
-FIG16_SCHEDS = (
-    ("fcfs", timing.SchedConfig()),
-    ("frfcfs_qd8", timing.SchedConfig("frfcfs", queue_depth=8)),
-    ("frfcfs_qd16", timing.SchedConfig("frfcfs", queue_depth=16)),
-    ("frfcfs_qd32", timing.SchedConfig("frfcfs", queue_depth=32)),
-    ("frfcfs_qd16_drain", timing.SchedConfig("frfcfs", queue_depth=16,
-                                             write_drain=True,
-                                             drain_batch=16)),
-)
+# fig 16's grid (repro_torch.figures.fig16_scheduler): five controllers x
+# {base, figcache_fast} on workloads 5 and 17 (common.SWEEP_WL) at the
+# long traces' requests per channel
+FIG16_SCHEDS = fig16_scheduler.SCHEDS
 FIG16_WORKLOADS, FIG16_PER_CHANNEL, FIG16_EAGER_PER_CHANNEL = \
-    (5, 17), 12288, 1024
+    fig_common.SWEEP_WL, fig_common.FULL.long_8core, 1024
 # telemetry windows: the GOLDEN combos at tests/test_obs.py's PERIOD (SLO
 # 40 ns, inside that trace's latencies), then benchmarks/fig_tail_latency.py's
 # PERIOD, SLO_NS, CHUNK and mechanisms on the long trace, a prefix of it
@@ -575,14 +585,13 @@ FIG16_WORKLOADS, FIG16_PER_CHANNEL, FIG16_EAGER_PER_CHANNEL = \
 TEL_GOLDEN_PERIOD, TEL_GOLDEN_SLO_NS = 32, 40
 TAIL_PERIOD, TAIL_SLO_NS, TAIL_CHUNK = 64, 150, 1024
 TAIL_MECHS, TAIL_EAGER_PREFIX = ("base", "figcache_fast"), 1024
-# the workload engine: fig 17's grid (benchmarks/fig17_scenarios.py:21 and
-# common.scenario_specs at QUICK_REQS_8CORE: every family's preset, 8 cores
-# x 4 channels x 6144 requests, seed 2), a static group's prefix held
+# the workload engine: fig 17's grid (repro_torch.figures.fig17_scenarios
+# and common.scenario_specs at the full sizes: every family's preset, 8
+# cores x 4 channels x 6144 requests, seed 2), a static group's prefix held
 # against the eager loop, and the fig-8 mixes (common.ALL_WL) generated as
 # spec_from_apps(apps, 4, 6144, seed=2) beside traces.build_trace
-FIG17_MECHS = ("base", "lisa_villa", "figcache_fast", "figcache_ideal",
-               "lldram")
-FIG17_CORES, FIG17_SEED, GEN_EAGER_PREFIX = 8, 2, 1024
+FIG17_MECHS = fig17_scenarios.MECHS
+FIG17_CORES, FIG17_SEED, GEN_EAGER_PREFIX = 8, fig_common.SEED_8CORE, 1024
 # orchestration: fig 17's grid (the specs and mechanisms above) as 30
 # durable shards of 6 segments, checkpointed after every segment, run
 # uninterrupted and killed at (shard, segment) then resumed; the CLI's
@@ -594,6 +603,160 @@ SYNC_STEPS, DENSE_REQS = 64, 512
 # the transcendentals' knob pairs held card against CPU over every uniform:
 # zipf_a 1.1 / 1.2 x n_pages 1024 to 8192 (the presets' values)
 XLA_KNOBS = [(n, a) for a in (1.1, 1.2) for n in (1024, 2048, 4096, 8192)]
+# the paper's figures (phase 21): python -m repro_torch.figures in-process
+# at the full sizes, every figure.  FIG_GOLD is the JAX package's summaries
+# at those sizes, made on the CPU by `PYTHONPATH=src:tests JAX_PLATFORMS=cpu
+# python tests/torch_figures_common.py` (equal to what the JAX package's
+# figure scripts print at their full sizes); the counters are bitwise, so
+# every rounded float is equal, not close.
+FIG_GOLD = {
+    "fig03_footprint": {
+        "oracle/visit_leq2": 0.999, "oracle/footprint": 0.135,
+        "oracle/row_hit_potential": 0.59, "zipf_reuse/visit_leq2": 1.0,
+        "zipf_reuse/footprint": 0.125, "zipf_reuse/row_hit_potential": 0.559,
+        "stream/visit_leq2": 0.896, "stream/footprint": 0.214,
+        "stream/row_hit_potential": 0.94, "stride/visit_leq2": 1.0,
+        "stride/footprint": 0.237, "stride/row_hit_potential": 0.473,
+        "pointer_chase/visit_leq2": 1.0, "pointer_chase/footprint": 0.125,
+        "pointer_chase/row_hit_potential": 0.002, "embed/visit_leq2": 1.0,
+        "embed/footprint": 0.125, "embed/row_hit_potential": 0.232,
+        "phase_mix/visit_leq2": 0.99, "phase_mix/footprint": 0.133,
+        "phase_mix/row_hit_potential": 0.709,
+    },
+    "fig07_single_core": {
+        "intensive/lisa_villa": 1.1354, "intensive/figcache_slow": 1.013,
+        "intensive/figcache_fast": 1.1329, "intensive/figcache_ideal": 1.1616,
+        "intensive/lldram": 1.1906, "non-intensive/lisa_villa": 1.0234,
+        "non-intensive/figcache_slow": 1.0282,
+        "non-intensive/figcache_fast": 1.0368,
+        "non-intensive/figcache_ideal": 1.0373,
+        "non-intensive/lldram": 1.0273,
+    },
+    "fig08_eight_core": {
+        "25%/lisa_villa": 1.0804, "25%/figcache_slow": 1.0622,
+        "25%/figcache_fast": 1.1169, "25%/figcache_ideal": 1.1271,
+        "25%/lldram": 1.105, "50%/lisa_villa": 1.1189,
+        "50%/figcache_slow": 1.0795, "50%/figcache_fast": 1.1677,
+        "50%/figcache_ideal": 1.1899, "50%/lldram": 1.1613,
+        "75%/lisa_villa": 1.1493, "75%/figcache_slow": 1.0596,
+        "75%/figcache_fast": 1.1889, "75%/figcache_ideal": 1.2302,
+        "75%/lldram": 1.2238, "100%/lisa_villa": 1.19,
+        "100%/figcache_slow": 1.0707, "100%/figcache_fast": 1.2335,
+        "100%/figcache_ideal": 1.3007, "100%/lldram": 1.2961,
+        "avg/lisa_villa": 1.1346, "avg/figcache_slow": 1.068,
+        "avg/figcache_fast": 1.1767, "avg/figcache_ideal": 1.212,
+        "avg/lldram": 1.1966,
+    },
+    "fig09_cache_hit": {
+        "25%/lisa_villa": 0.9502, "25%/figcache_slow": 0.9158,
+        "25%/figcache_fast": 0.9285, "50%/lisa_villa": 0.954,
+        "50%/figcache_slow": 0.9202, "50%/figcache_fast": 0.9349,
+        "75%/lisa_villa": 0.9422, "75%/figcache_slow": 0.9136,
+        "75%/figcache_fast": 0.9198, "100%/lisa_villa": 0.9417,
+        "100%/figcache_slow": 0.9073, "100%/figcache_fast": 0.9191,
+    },
+    "fig10_row_hit": {
+        "25%/base": 0.6908, "25%/lisa_villa": 0.6908,
+        "25%/figcache_slow": 0.7832, "25%/figcache_fast": 0.785,
+        "50%/base": 0.6659, "50%/lisa_villa": 0.6659,
+        "50%/figcache_slow": 0.7745, "50%/figcache_fast": 0.7744,
+        "75%/base": 0.6177, "75%/lisa_villa": 0.6177,
+        "75%/figcache_slow": 0.7244, "75%/figcache_fast": 0.7248,
+        "100%/base": 0.5922, "100%/lisa_villa": 0.5922,
+        "100%/figcache_slow": 0.7114, "100%/figcache_fast": 0.7117,
+    },
+    "fig11_energy": {
+        "25%/figcache_slow/system": 0.9544, "25%/figcache_slow/dram": 0.9865,
+        "25%/figcache_fast/system": 0.9008, "25%/figcache_fast/dram": 0.9274,
+        "25%/lisa_villa/system": 0.9524, "25%/lisa_villa/dram": 1.1466,
+        "50%/figcache_slow/system": 0.9558, "50%/figcache_slow/dram": 0.9803,
+        "50%/figcache_fast/system": 0.8903, "50%/figcache_fast/dram": 0.9169,
+        "50%/lisa_villa/system": 0.9418, "50%/lisa_villa/dram": 1.1386,
+        "75%/figcache_slow/system": 0.9586, "75%/figcache_slow/dram": 1.0007,
+        "75%/figcache_fast/system": 0.8744, "75%/figcache_fast/dram": 0.9259,
+        "75%/lisa_villa/system": 0.9432, "75%/lisa_villa/dram": 1.2089,
+        "100%/figcache_slow/system": 0.9496,
+        "100%/figcache_slow/dram": 0.9919,
+        "100%/figcache_fast/system": 0.8515,
+        "100%/figcache_fast/dram": 0.9115, "100%/lisa_villa/system": 0.9306,
+        "100%/lisa_villa/dram": 1.2003,
+    },
+    "fig12_capacity": {
+        "FS=1": 1.1584, "FS=2": 1.1908, "FS=4": 1.192, "FS=8": 1.192,
+        "FS=16": 1.192,
+    },
+    "fig13_segment_size": {
+        "seg=8": 1.1607, "seg=16": 1.2, "seg=32": 1.1195, "seg=64": 1.0012,
+        "seg=128": 0.8012,
+    },
+    "fig14_replacement": {
+        "row_benefit": 1.1584, "segment_benefit": 1.1191, "lru": 1.1649,
+        "random": 1.1431,
+    },
+    "fig15_insertion": {
+        "th=1": 1.2, "th=2": 1.1883, "th=4": 1.1459, "th=8": 1.1316,
+    },
+    "fig16_scheduler": {
+        "fcfs": 1.192, "frfcfs_qd8": 1.0558, "frfcfs_qd16": 1.0555,
+        "frfcfs_qd32": 1.0555, "frfcfs_qd16_drain": 1.0189,
+    },
+    "fig17_scenarios": {
+        "zipf_reuse/lisa_villa": 1.164, "zipf_reuse/figcache_fast": 1.2615,
+        "zipf_reuse/figcache_ideal": 1.33, "zipf_reuse/lldram": 1.3197,
+        "stream/lisa_villa": 1.3522, "stream/figcache_fast": 0.9055,
+        "stream/figcache_ideal": 1.2652, "stream/lldram": 1.4094,
+        "stride/lisa_villa": 0.8911, "stride/figcache_fast": 0.6339,
+        "stride/figcache_ideal": 0.8191, "stride/lldram": 1.2906,
+        "pointer_chase/lisa_villa": 1.0392,
+        "pointer_chase/figcache_fast": 1.0079,
+        "pointer_chase/figcache_ideal": 1.0345,
+        "pointer_chase/lldram": 1.3102, "embed/lisa_villa": 1.0298,
+        "embed/figcache_fast": 1.0421, "embed/figcache_ideal": 1.0574,
+        "embed/lldram": 1.0624, "phase_mix/lisa_villa": 1.1609,
+        "phase_mix/figcache_fast": 1.1254, "phase_mix/figcache_ideal": 1.2898,
+        "phase_mix/lldram": 1.3502,
+    },
+    "fig_tail_latency": {
+        "zipf_reuse/p99_gain": 1.1667, "zipf_reuse/p999_gain": 1.9188,
+        "zipf_reuse/base_p99_ns": 140.0, "zipf_reuse/figcache_p99_ns": 120.0,
+        "zipf_reuse/figcache_slo_rate": 0.0, "stream/p99_gain": 0.7561,
+        "stream/p999_gain": 0.9443, "stream/base_p99_ns": 3562.9,
+        "stream/figcache_p99_ns": 4712.4,
+        "stream/figcache_slo_rate": 0.318563, "stride/p99_gain": 0.4936,
+        "stride/p999_gain": 0.3226, "stride/base_p99_ns": 123.4,
+        "stride/figcache_p99_ns": 250.0, "stride/figcache_slo_rate": 0.117391,
+        "pointer_chase/p99_gain": 0.92, "pointer_chase/p999_gain": 0.9897,
+        "pointer_chase/base_p99_ns": 107.0,
+        "pointer_chase/figcache_p99_ns": 116.3,
+        "pointer_chase/figcache_slo_rate": 8.1e-05, "embed/p99_gain": 1.0149,
+        "embed/p999_gain": 1.048, "embed/base_p99_ns": 1022.1,
+        "embed/figcache_p99_ns": 1007.1, "embed/figcache_slo_rate": 0.794474,
+        "phase_mix/p99_gain": 1.0662, "phase_mix/p999_gain": 1.1083,
+        "phase_mix/base_p99_ns": 254.5, "phase_mix/figcache_p99_ns": 238.7,
+        "phase_mix/figcache_slo_rate": 0.036418, "p99_gain_mean": 0.9029,
+    },
+}
+# sim_scan launches of each figure at the full sizes, counted from the code
+# (static groups x traces or stream segments): fig 7 and fig 8 one launch
+# per mechanism (the traces stacked on the channels), figs 9-11 none (fig
+# 8's cached batch); figs 12-16 two workloads x (base + one figcache_fast
+# group; base + 4 policies; 5 controllers x 2); fig 17 one launch per
+# mechanism; the tail figure 6 families x 2 mechanisms x 6 segments of
+# 1024 of a 6144-request trace
+FIG_LAUNCHES = {"fig03_footprint": 0, "fig07_single_core": 6,
+                "fig08_eight_core": 6, "fig09_cache_hit": 0,
+                "fig10_row_hit": 0, "fig11_energy": 0, "fig12_capacity": 4,
+                "fig13_segment_size": 4, "fig14_replacement": 10,
+                "fig15_insertion": 4, "fig16_scheduler": 20,
+                "fig17_scenarios": 5, "fig_tail_latency": 72}
+# the paper's own numbers (FIGCache-Fast): fig 7 +16.1 % on the intensive
+# apps, fig 8 1.163 average weighted speedup, fig 11 DRAM energy -7.8 %
+# (the 8-core average: here the mean of the four classes' ratios)
+FIG_PAPER = (("fig07_single_core", "intensive/figcache_fast", 1.161),
+             ("fig08_eight_core", "avg/figcache_fast", 1.163),
+             ("fig11_energy", "mean of the classes' figcache_fast/dram",
+              0.922))
+FIG_BUDGET_S = 60.0
 
 
 def log(msg):
@@ -4846,6 +5009,103 @@ def phase_sanitizer(dev):
     return {"launches": total, "tax": tax, "tripped": tripped}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the paper's figures through repro_torch.figures
+
+def fig_diff(got, want) -> str:
+    keys = sorted(set(got) | set(want))
+    bad = [(k, got.get(k), want.get(k)) for k in keys
+           if got.get(k) != want.get(k)]
+    return f"{len(bad)} of {len(keys)} keys differ, first {bad[:4]}"
+
+
+def phase_figures(dev):
+    """Every figure of ``repro_torch.figures`` at the full sizes, in the
+    order ``python -m repro_torch.figures`` runs them, with a fresh cache:
+    each summary equal to FIG_GOLD key by key, each figure's sim_scan
+    launches (counted from 0 around it) equal to FIG_LAUNCHES and no
+    standalone fts_lookup launch; walls printed; then
+    ``examples/torch_quickstart.py`` on the default device."""
+    t_phase = time.perf_counter()
+    fig_common.clear_cache()
+    walls, launches, summaries = {}, {}, {}
+    for name in fig_cli.NAMES:
+        scan_kernel.COUNTER.launches = 0
+        fts_kernel.COUNTER.launches = 0
+        t0 = time.perf_counter()
+        _, summary = fig_cli.module(name).run(dev, fig_common.FULL)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = scan_kernel.COUNTER.launches
+        check(launches[name] == FIG_LAUNCHES[name],
+              f"{name} launched sim_scan {launches[name]} times, expected "
+              f"{FIG_LAUNCHES[name]}")
+        check(fts_kernel.COUNTER.launches == 0,
+              f"{name} launched the standalone fts_lookup "
+              f"{fts_kernel.COUNTER.launches} times")
+        check(summary == FIG_GOLD[name],
+              f"{name} differs from the JAX package's summary: "
+              f"{fig_diff(summary, FIG_GOLD[name])}")
+        summaries[name] = summary
+        log(f"[figures] {name:20s} {walls[name]:7.3f} s, {launches[name]:2d} "
+            f"sim_scan launches (expected {FIG_LAUNCHES[name]}), 0 "
+            f"fts_lookup; {len(summary)} summary keys == FIG_GOLD; derived "
+            f"{fig_cli.derived(name, summary)}")
+    fig11 = summaries["fig11_energy"]
+    repro = {"fig07_single_core": summaries["fig07_single_core"][
+                 "intensive/figcache_fast"],
+             "fig08_eight_core": summaries["fig08_eight_core"][
+                 "avg/figcache_fast"],
+             "fig11_energy": float(np.mean([
+                 fig11[f"{c}%/figcache_fast/dram"]
+                 for c in fig_common.WL_IDX]))}
+    for name, key, paper in FIG_PAPER:
+        log(f"[figures] paper vs port (= JAX package): {name} {key}: paper "
+            f"{paper:.3f}, reproduced {repro[name]:.4f}")
+    figures_s = sum(walls.values())
+    total = sum(launches.values())
+    log(f"[figures] {len(walls)} figures in {figures_s:.1f} s "
+        f"({'within' if figures_s <= FIG_BUDGET_S else 'OVER'} the "
+        f"{FIG_BUDGET_S:.0f} s budget), {total} sim_scan launches")
+
+    # the quickstart example on the default device (no --device): [1] one
+    # sim_scan launch per mechanism (3), [2] one figaro_reloc launch, [3]
+    # one flash_attention launch per layer in the forward and the prefill
+    counters = {"sim_scan": scan_kernel.COUNTER,
+                "figaro_reloc": reloc_kernel.COUNTER,
+                "flash_attention": flash_kernel.COUNTER}
+    want = {"sim_scan": 3, "figaro_reloc": 1,
+            "flash_attention": 2 * configs.get_reduced("qwen2-7b").n_layers}
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    argv, sys.argv = sys.argv, ["torch_quickstart.py"]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(ROOT / "examples" / "torch_quickstart.py"),
+                           run_name="__main__")
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    quick_s = time.perf_counter() - t0
+    quick_launches = {k: c.launches for k, c in counters.items()}
+    check(quick_launches == want, f"torch_quickstart.py launched "
+          f"{quick_launches}, expected {want}")
+    out = buf.getvalue()
+    for marker in ("[1] mcf speedup", "[2] FIGARO reloc", "OK",
+                   "[3] qwen2-7b"):
+        check(marker in out, f"torch_quickstart.py printed no {marker!r}")
+    for line in out.splitlines():
+        log(f"[figures] quickstart | {line}")
+    log(f"[figures] examples/torch_quickstart.py on the default device in "
+        f"{quick_s:.1f} s, launches {quick_launches}; phase 21 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"walls": walls, "launches": launches, "total": total,
+            "figures_s": figures_s, "quickstart_s": quick_s,
+            "quickstart_launches": quick_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -4893,6 +5153,7 @@ def main():
     ssm = phase_ssm(dev)
     trained = phase_train(dev)
     meshed = phase_mesh(dev, trained["run"]["step_ms"])
+    figs = phase_figures(dev)
 
     k_ms, p_ms, bound = timings[(32, 16, 512)]
     # on the main path the lookup runs inlined in sim_scan, so the
@@ -4934,7 +5195,8 @@ def main():
                           "telemetry": telem["launches"],
                           "workloads": gen["launches"],
                           "orchestration": orch["launches"],
-                          "sanitizer": sanitizer["launches"]}})
+                          "sanitizer": sanitizer["launches"],
+                          "figures": figs["total"]}})
     for path, n in rows[-1]["path_launches"].items():
         check(n > 0, f"the {path} path launched sim_scan no time")
     # figaro_reloc's path is now the embedding cache's (the figkv step

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no jax and no ``repro`` import anywhere in
-``src/repro_torch`` or ``chip_smoke.py``, the CUDA default never drops to
+"""The PyTorch port stands alone: no jax, ``repro`` or ``benchmarks``
+import anywhere in ``src/repro_torch``, the port's examples
+(``examples/torch_*.py``) or ``chip_smoke.py``, the CUDA default never drops to
 the CPU silently, and its kernel modules import without CUDA or nvcc."""
 import ast
 import os
@@ -17,7 +18,7 @@ from repro_torch.core import dram, timing
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -32,7 +33,7 @@ def _imported_modules(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_port_files_exist():
@@ -47,12 +48,29 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py")) + \
+    sorted((ROOT / "tests").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TESTS,
+                         ids=[p.name for p in PORT_TESTS])
+def test_port_tests_do_not_import_benchmarks(path):
+    """The port's tests hold it against ``repro`` itself, never against
+    the JAX package's benchmark scripts."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] == "benchmarks"]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_ast_walk_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "bad.py"
     f.write_text("def f():\n    from repro.core import energy\n"
                  "    import jax.numpy as jnp\n")
     assert [m for m in _imported_modules(f) if _forbidden(m)] == \
         ["repro.core", "jax.numpy"]
+    f.write_text("from benchmarks import common\n")
+    assert [m for m in _imported_modules(f) if _forbidden(m)] == \
+        ["benchmarks"]
     f.write_text("import repro_torch.core.dram\n")
     assert not [m for m in _imported_modules(f) if _forbidden(m)]
 
@@ -99,7 +117,9 @@ def test_kernel_modules_import_without_cuda_or_nvcc(tmp_path):
             "repro_torch.kernels.sim_scan.sim_scan as s, "
             "repro_torch.figkv, repro_torch.launch.serve, "
             "repro_torch.models, repro_torch.convert, "
-            "repro_torch.kernels._build as b, repro_torch.core.simulator\n"
+            "repro_torch.kernels._build as b, repro_torch.core.simulator, "
+            "repro_torch.figures.__main__ as fm\n"
+            "[fm.module(n) for n in fm.NAMES]\n"
             "assert k.COUNTER.launches == r.COUNTER.launches == "
             "d.COUNTER.launches == f.COUNTER.launches == "
             "s.COUNTER.launches == 0 and not b._LOADED\n"
