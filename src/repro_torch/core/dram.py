@@ -72,6 +72,7 @@ from repro_torch.core.timing import (DDR4, GEOM, DRAMGeometry, DRAMTimings,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fts_lookup.ops import fts_lookup_op
 from repro_torch.kernels.sim_scan.sim_scan import ring_rows, sim_scan
+from repro_torch.obs import trace as obs_trace
 
 I32 = torch.int32
 
@@ -910,14 +911,21 @@ def _make_step_dense(static: StaticConfig, geom: DRAMGeometry = GEOM):
 
 def _lane_trace(trace: Trace, repeats: int, device) -> Trace:
     """(T,)/(C, T) leaves -> contiguous (T, repeats * C) device tensors;
-    column ``p * C + c`` is channel ``c``."""
+    column ``p * C + c`` is channel ``c``.  Each leaf that comes from the
+    host is one copy to the device, counted (``h2d_copies`` /
+    ``h2d_bytes``) on every device alike."""
     out = []
+    copies = nbytes = 0
     for x, dt in zip(trace, _TRACE_DTYPES):
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+        host = x.device.type == "cpu"
         x = x.to(device=device, dtype=dt)
+        if host:
+            copies, nbytes = copies + 1, nbytes + x.nbytes
         x = x[None] if x.dim() == 1 else x
         out.append(x.t().repeat(1, repeats).contiguous())
+    obs_trace.count(h2d_copies=copies, h2d_bytes=nbytes)
     return Trace(*out)
 
 
@@ -954,8 +962,9 @@ def _prepare(trace: Trace, params: MechParams, state: SimState, dev):
     C = 1 if np.ndim(trace.t_issue) == 1 else int(trace.t_issue.shape[0])
     P = _n_params(params) or 1
     _check_state(state, P * C)
-    return (_lane_trace(trace, P, dev), _lane_params(params, C, dev),
-            clone_state(state, dev))
+    with obs_trace.span("replay.prepare"):
+        return (_lane_trace(trace, P, dev), _lane_params(params, C, dev),
+                clone_state(state, dev))
 
 
 def clone_state(state: SimState, device) -> SimState:
@@ -996,8 +1005,9 @@ def _advance_eager(trace: Trace, static: StaticConfig, params: MechParams,
     tr, lp, st = _prepare(trace, params, state, dev)
     T = tr.t_issue.shape[0]
     carry = (st.bank, st.cnt, _open(static, st, T))
-    for t in range(T):
-        carry = step(lp, carry, Trace(*(f[t] for f in tr)))
+    with obs_trace.span("replay.run"):
+        for t in range(T):
+            carry = step(lp, carry, Trace(*(f[t] for f in tr)))
     return _close(SimState(carry[0], carry[1], st.tel), carry[2],
                   with_frames)
 
@@ -1021,7 +1031,8 @@ def _advance(trace: Trace, static: StaticConfig, params: MechParams,
                               with_frames)
     tr, lp, st = _prepare(trace, params, state, dev)
     tel = _open(static, st, tr.t_issue.shape[0])
-    sim_scan(tr, lp, st.bank, st.cnt, static, GEOM, tel)
+    with obs_trace.span("replay.run"):
+        sim_scan(tr, lp, st.bank, st.cnt, static, GEOM, tel)
     return _close(st, tel, with_frames)
 
 
@@ -1031,10 +1042,11 @@ def sim_init(static: StaticConfig, geom: DRAMGeometry = GEOM,
     """Fresh replay state with ``(batch or 1) * (channels or 1)`` lanes,
     lane ``p * C + c`` for params point ``p`` on channel ``c``."""
     lanes = (batch or 1) * (channels or 1)
-    return SimState(bank=init_state(static, geom, lanes, device),
-                    cnt=init_counters(geom, lanes, device),
-                    tel=init_telemetry(geom, lanes, device)
-                    if static.telemetry else None)
+    with obs_trace.span("replay.init"):
+        return SimState(bank=init_state(static, geom, lanes, device),
+                        cnt=init_counters(geom, lanes, device),
+                        tel=init_telemetry(geom, lanes, device)
+                        if static.telemetry else None)
 
 
 def finalize(state: SimState) -> Counters:

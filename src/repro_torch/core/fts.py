@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 BIG = 1 << 30
 
@@ -49,10 +50,12 @@ class FTS(NamedTuple):
 def init(max_slots: int, max_segs_per_row: int, n_track: int = 256,
          device=None) -> FTS:
     """One empty tag store at its padded geometry (no lane or bank axis;
-    ``dram.init_state`` broadcasts it to ``(N, n_banks, ...)``)."""
+    ``dram.init_state`` broadcasts it to ``(N, n_banks, ...)``).  Its two
+    scalars are copies from the host, counted as ``h2d_copies`` /
+    ``h2d_bytes``."""
     dev = resolve_device(device)
     i32 = torch.int32
-    return FTS(
+    fts = FTS(
         tags=torch.full((max_slots,), -1, dtype=i32, device=dev),
         valid=torch.zeros((max_slots,), dtype=torch.bool, device=dev),
         dirty=torch.zeros((max_slots,), dtype=torch.bool, device=dev),
@@ -67,6 +70,9 @@ def init(max_slots: int, max_segs_per_row: int, n_track: int = 256,
         free_list=torch.arange(max_slots, dtype=i32, device=dev),
         n_valid=torch.tensor(0, dtype=i32, device=dev),
     )
+    obs_trace.count(h2d_copies=2,
+                    h2d_bytes=fts.evict_row.nbytes + fts.n_valid.nbytes)
+    return fts
 
 
 def init_lanes(lanes: int, max_slots: int, max_segs_per_row: int,

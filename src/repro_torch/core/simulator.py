@@ -19,6 +19,12 @@ axis.  The counters come back to the host once per group and the IPC /
 energy post-processing is the JAX package's numpy code, so equal counters
 give exactly equal ``RunResult``s.
 
+While a torch profiler session is on, a call records its program spans
+(``obs.trace.span``): the root ``sweep``, ``sweep.stack`` (scheduling and
+stacking), and per static group ``sweep.group`` holding ``sweep.params``,
+the replay's ``replay.init`` / ``replay.prepare`` / ``replay.run``
+(``dram``), ``sweep.to_host`` and ``sweep.results``.
+
 A config with telemetry windows (``MechConfig.telemetry``) replays through
 the telemetry route and returns the same results; the windows themselves
 are collected by ``streaming`` with an ``obs.WindowCollector``.
@@ -43,6 +49,7 @@ from repro_torch.core.energy import ENERGY
 from repro_torch.core.timing import (DDR4, DRAMTimings, MechConfig,
                                      paper_config, shared_static,
                                      stack_params, static_group_key)
+from repro_torch.obs.trace import span
 
 CPU_GHZ = 3.2
 CPI_EXEC = 0.4          # 3-wide OoO issue
@@ -162,6 +169,17 @@ def _dispatch_sweep(trace: dram.Trace, static, batch, chunk_len, device
                                   static, batch, device=device)
 
 
+def _replay_group(trace: dram.Trace, static, cfgs, idxs, t, chunk_len,
+                  device) -> dram.Counters:
+    """One static group's params, replay and counters on the host, each
+    under its program span (the replay's own spans are ``dram``'s)."""
+    with span("sweep.params"):
+        batch = _group_params(cfgs, idxs, t, device)
+    cnt = _dispatch_sweep(trace, static, batch, chunk_len, device)
+    with span("sweep.to_host"):
+        return _host_counters(cnt)
+
+
 def sweep(trace: dram.Trace, cfgs: Sequence[MechConfig],
           apps: Sequence[traces.AppParams], t: DRAMTimings = DDR4,
           chunk_len: int | None = None, device=None) -> List[RunResult]:
@@ -171,21 +189,24 @@ def sweep(trace: dram.Trace, cfgs: Sequence[MechConfig],
     bitwise-identical to per-config ``run_mechanism``.  ``chunk_len``
     streams each group through the segment-carried replay instead (same
     results bitwise)."""
-    multi = np.ndim(trace.t_issue) == 2
-    n_channels = int(trace.t_issue.shape[0]) if multi else 1
-    out: List[RunResult | None] = [None] * len(cfgs)
-    scheduled: Dict[object, dram.Trace] = {}   # host pass once per controller
-    for (static, sc), idxs in static_groups(cfgs).items():
-        if sc not in scheduled:
-            scheduled[sc] = sched_policies.schedule(trace, sc)
-        cnts = _host_counters(_dispatch_sweep(
-            scheduled[sc], static, _group_params(cfgs, idxs, t, device),
-            chunk_len, device))
-        results = _results_from_counters_batch(
-            cnts, [cfgs[i] for i in idxs], apps, n_channels)
-        for j, i in enumerate(idxs):
-            out[i] = results[j]
-    return out
+    with span("sweep"):
+        multi = np.ndim(trace.t_issue) == 2
+        n_channels = int(trace.t_issue.shape[0]) if multi else 1
+        out: List[RunResult | None] = [None] * len(cfgs)
+        groups = static_groups(cfgs)
+        with span("sweep.stack"):           # host pass once per controller
+            scheduled = {sc: sched_policies.schedule(trace, sc)
+                         for sc in dict.fromkeys(sc for _, sc in groups)}
+        for (static, sc), idxs in groups.items():
+            with span("sweep.group"):
+                cnts = _replay_group(scheduled[sc], static, cfgs, idxs, t,
+                                     chunk_len, device)
+                with span("sweep.results"):
+                    results = _results_from_counters_batch(
+                        cnts, [cfgs[i] for i in idxs], apps, n_channels)
+                    for j, i in enumerate(idxs):
+                        out[i] = results[j]
+        return out
 
 
 def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
@@ -204,7 +225,13 @@ def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
     (specs of one structure as one batch).  ``apps_list`` may be omitted
     when every entry is a spec; with mixed entries, ``None`` at a spec's
     position takes the spec's ``apps()``."""
-    trs = list(trs)
+    with span("sweep"):
+        return _sweep_traces(list(trs), cfgs, apps_list, t, chunk_len,
+                             device)
+
+
+def _sweep_traces(trs: list, cfgs, apps_list, t, chunk_len, device
+                  ) -> List[List[RunResult]]:
     if not trs:
         raise ValueError("need at least one workload")
     kinds = (dram.Trace, workload.WorkloadSpec)
@@ -251,22 +278,28 @@ def sweep_traces(trs: Sequence, cfgs: Sequence[MechConfig], apps_list=None,
         return stacked[sc]
 
     out: List[List[RunResult | None]] = [[None] * len(cfgs) for _ in range(W)]
-    for (static, sc), idxs in static_groups(cfgs).items():
-        cnts = _host_counters(_dispatch_sweep(
-            flat_for(sc), static, _group_params(cfgs, idxs, t, device),
-            chunk_len, device))                               # (P, W*C, ...)
-        for w in range(W):
-            # slice workload w back out; single-channel inputs also drop the
-            # stacking axis so results are shaped exactly like plain `sweep`
-            if multi:
-                cnt_w = dram.Counters(*[a[:, w * C:(w + 1) * C]
-                                        for a in cnts])
-            else:
-                cnt_w = dram.Counters(*[a[:, w] for a in cnts])
-            results = _results_from_counters_batch(
-                cnt_w, [cfgs[i] for i in idxs], apps_list[w], C)
-            for j, i in enumerate(idxs):
-                out[w][i] = results[j]
+    groups = static_groups(cfgs)
+    with span("sweep.stack"):
+        for sc in dict.fromkeys(sc for _, sc in groups):
+            flat_for(sc)
+    for (static, sc), idxs in groups.items():
+        with span("sweep.group"):
+            cnts = _replay_group(flat_for(sc), static, cfgs, idxs, t,
+                                 chunk_len, device)       # (P, W*C, ...)
+            with span("sweep.results"):
+                for w in range(W):
+                    # slice workload w back out; single-channel inputs also
+                    # drop the stacking axis so results are shaped exactly
+                    # like plain `sweep`
+                    if multi:
+                        cnt_w = dram.Counters(*[a[:, w * C:(w + 1) * C]
+                                                for a in cnts])
+                    else:
+                        cnt_w = dram.Counters(*[a[:, w] for a in cnts])
+                    results = _results_from_counters_batch(
+                        cnt_w, [cfgs[i] for i in idxs], apps_list[w], C)
+                    for j, i in enumerate(idxs):
+                        out[w][i] = results[j]
     return out
 
 

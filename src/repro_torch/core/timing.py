@@ -16,6 +16,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 TICKS_PER_NS = 8
 
@@ -272,13 +273,14 @@ class MechConfig:
         )
 
     def params(self, t: DRAMTimings = DDR4, device=None) -> MechParams:
-        """The numeric knobs as 0-d int32 tensors on ``device``."""
+        """The numeric knobs as 0-d int32 tensors on ``device``, each one
+        copy from the host (counted as ``h2d_copies`` / ``h2d_bytes``)."""
         dev = resolve_device(device)
 
         def i32(v):
             return torch.tensor(v, dtype=torch.int32, device=dev)
 
-        return MechParams(
+        p = MechParams(
             rcd=i32(t.rcd), rp=i32(t.rp), cas=i32(t.cas), bl=i32(t.bl),
             ccd=i32(t.ccd), rcd_fast=i32(t.rcd_fast), rp_fast=i32(t.rp_fast),
             reloc=i32(t.reloc), lisa_hop=i32(t.lisa_hop),
@@ -289,6 +291,10 @@ class MechConfig:
             segs_per_row=i32(self.segs_per_row if self.has_cache else 1),
             slo_ns=i32(self.slo_ns),
         )
+        if obs_trace.recording():
+            obs_trace.count(h2d_copies=len(p),
+                            h2d_bytes=sum(x.nbytes for x in p))
+        return p
 
 
 def static_group_key(cfg: MechConfig):

@@ -10,7 +10,11 @@
    brackets, CDFs and exact SLO accounting (numpy);
  * ``obs.trace`` — a structured JSONL span/event log with a Chrome
    trace-event exporter (Perfetto / chrome://tracing), and the telemetry
-   series as counter tracks.
+   series as counter tracks; and ``obs.trace.PROGRAM``, the program
+   recorder: spans (``span``) and counters (``count``) of the simulator's
+   sweep path, stamped by ``time.time_ns()`` (the profiler's Unix-epoch
+   clock), recorded in memory only while a torch profiler session is on,
+   a bounded tail of 2**20 records.
 
  * ``obs.profile`` — cold-vs-warm walls, kernel builds and per-entry-point
    dispatch counts, with ``analysis.contracts.REGISTRY`` as the source of
@@ -21,10 +25,22 @@ capacity grid, pins chunked-vs-monolithic window series bitwise, reports
 the tail percentiles, renders the ``phase_mix`` re-warming series and
 writes ``BENCH_obs.json`` (``--device``, default the CUDA device).
 """
-from repro_torch.obs.telemetry import WindowCollector, window_table
-from repro_torch.obs.trace import (Tracer, chrome_trace, chrome_from_jsonl,
-                                   telemetry_counter_events)
-from repro_torch.obs import latency
+from importlib import import_module
 
-__all__ = ["WindowCollector", "window_table", "Tracer", "chrome_trace",
-           "chrome_from_jsonl", "telemetry_counter_events", "latency"]
+# names of the submodules, loaded at first use: ``core`` imports
+# ``obs.trace`` for the program recorder, and ``obs.telemetry`` imports
+# ``core.dram``, so an eager import here would be circular
+_FROM = {"WindowCollector": "telemetry", "window_table": "telemetry",
+         "Tracer": "trace", "chrome_trace": "trace",
+         "chrome_from_jsonl": "trace", "telemetry_counter_events": "trace",
+         "latency": None}
+
+__all__ = list(_FROM)
+
+
+def __getattr__(name):
+    if name not in _FROM:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if _FROM[name] is None:
+        return import_module(f"{__name__}.{name}")
+    return getattr(import_module(f"{__name__}.{_FROM[name]}"), name)

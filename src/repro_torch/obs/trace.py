@@ -14,17 +14,40 @@ so a killed process still leaves every span it opened on disk.
 trace-event JSON format (a ``{"traceEvents": [...]}`` object) loadable in
 Perfetto or chrome://tracing; ``telemetry_counter_events`` renders a
 ``WindowCollector`` series as counter tracks beside the spans.
+
+``PROGRAM`` is the program recorder: one in-memory ``Tracer`` per process
+that the port's hot paths (``simulator.sweep`` / ``sweep_traces`` and the
+replay under them) write spans and counters to through ``span(name)`` and
+``count(**amounts)``.  Its clock is ``time.time_ns()``, the Unix-epoch
+nanoseconds Kineto stamps its events in, so the spans lie on the
+profiler's device trace.  It records only while a torch profiler session
+is on in the process (``recording()``); otherwise ``span`` returns a
+shared no-op context and ``count`` returns at once, one check of the
+profiler's state each.  A span's ``B`` record carries its own ``id``, its
+``parent``'s id (``None`` at the root) and its ``job``, the id of the
+outermost span open on its thread; its ``E`` record carries its ``id`` and
+the amounts ``count`` added while it was the innermost open span (counted
+where the work happens, never derived from shapes afterwards).  It keeps
+a bounded tail of ``PROGRAM_MAXLEN`` records (2**20, some 100 jobs of 100
+records each in a 10 s traced window, many times over), the oldest
+dropped first.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
 import os
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
 __all__ = ["Tracer", "chrome_trace", "chrome_from_jsonl", "read_jsonl",
-           "counter_events", "telemetry_counter_events"]
+           "counter_events", "telemetry_counter_events", "PROGRAM", "span",
+           "count", "recording"]
 
 
 def _encode(rec: Dict[str, Any]) -> str:
@@ -39,22 +62,25 @@ class Tracer:
     non-decreasing numbers (a deterministic logical clock keeps the log
     byte-identical across runs).  Without a clock a plain event counter
     is used (still deterministic, just unitless).
-    ``path=None`` keeps records in memory only (``.events``).
+    ``path=None`` keeps records in memory only (``.events``); ``maxlen``
+    keeps only the newest ``maxlen`` of them.
     """
 
     def __init__(self, path: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 pid: int = 0) -> None:
-        self.events: List[Dict[str, Any]] = []
+                 pid: int = 0, maxlen: Optional[int] = None) -> None:
+        self.events: List[Dict[str, Any]] = [] if maxlen is None else \
+            collections.deque(maxlen=maxlen)
         self.pid = pid
         self._clock = clock or (lambda c=itertools.count(1): float(next(c)))
         if path and os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
         self._f = open(path, "a", encoding="utf-8") if path else None
 
-    def _emit(self, ph: str, name: str, attrs: Dict[str, Any]) -> None:
+    def _emit(self, ph: str, name: str, attrs: Dict[str, Any],
+              tid: int = 0) -> None:
         rec = {"name": name, "ph": ph, "ts": self._clock(),
-               "pid": self.pid, "tid": 0, "args": attrs}
+               "pid": self.pid, "tid": tid, "args": attrs}
         self.events.append(rec)
         if self._f is not None:
             self._f.write(_encode(rec) + "\n")
@@ -89,6 +115,70 @@ class Tracer:
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+PROGRAM_MAXLEN = 1 << 20
+PROGRAM = Tracer(clock=time.time_ns, maxlen=PROGRAM_MAXLEN)
+recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_ids = itertools.count(1)
+_open = threading.local()        # this thread's open program spans
+
+
+def _stack() -> List["_Span"]:
+    stack = getattr(_open, "spans", None)
+    if stack is None:
+        stack = _open.spans = []
+    return stack
+
+
+class _Span:
+    """One program span: ``B`` on entry, ``E`` (with its counts) on exit,
+    raised or not, so every ``B`` has its ``E``."""
+    __slots__ = ("name", "id", "counts", "tid")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "_Span":
+        stack = _stack()
+        self.id = next(_ids)
+        self.counts: Dict[str, int] = {}
+        self.tid = threading.get_ident()
+        PROGRAM._emit("B", self.name, {
+            "id": self.id, "parent": stack[-1].id if stack else None,
+            "job": stack[0].id if stack else self.id}, self.tid)
+        stack.append(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _stack().pop()
+        args = {"id": self.id, **self.counts}
+        if exc_type is not None:
+            args["raised"] = exc_type.__name__
+        PROGRAM._emit("E", self.name, args, self.tid)
+        return False
+
+
+def span(name: str):
+    """A program span named ``name`` (a context manager), recorded in
+    ``PROGRAM`` while the profiler is on; a shared no-op otherwise."""
+    return _Span(name) if recording() else _OFF
+
+
+def count(**amounts: int) -> None:
+    """Add ``amounts`` to the innermost open program span's counts (its
+    ``E`` record), or record them as a ``C`` record named ``count`` where
+    no span is open; nothing while the profiler is off."""
+    if not recording():
+        return
+    stack = _stack()
+    if not stack:
+        PROGRAM._emit("C", "count", dict(amounts), threading.get_ident())
+        return
+    counts = stack[-1].counts
+    for k, v in amounts.items():
+        counts[k] = counts.get(k, 0) + v
 
 
 def read_jsonl(path: str) -> List[Dict[str, Any]]:
